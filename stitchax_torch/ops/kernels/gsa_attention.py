@@ -1,0 +1,55 @@
+"""K1: fused global-subsample attention (csrc/gsa_attention.cu).
+
+Port of `gsa_attention_pallas` (stitchax/ops/pallas/gsa_attention.py:51).
+`gsa_attention` launches the CUDA kernel for CUDA tensors and takes the plain
+PyTorch version only for CPU tensors. Inference only: when training is
+ported this gets a `torch.autograd.Function` with a backward kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import library
+
+MAX_KEYS = 256
+HEAD_DIMS = (16, 32)
+
+
+def gsa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, heads: int) -> torch.Tensor:
+    """q (B, N, C), k/v (B, M, C) -> (B, N, C): multi-head softmax
+    attention, logits scaled by (C/heads)^-0.5, computed in fp32, output in
+    q's dtype (the oracle `gsa_attention_ref`, :92)."""
+    B, N, C = q.shape
+    M = k.shape[1]
+    d = C // heads
+    qh = q.float().reshape(B, N, heads, d).transpose(1, 2)
+    kh = k.float().reshape(B, M, heads, d).transpose(1, 2)
+    vh = v.float().reshape(B, M, heads, d).transpose(1, 2)
+    attn = torch.softmax(qh @ kh.transpose(-1, -2) * d ** -0.5, dim=-1)
+    out = (attn @ vh).transpose(1, 2).reshape(B, N, C)
+    return out.to(q.dtype)
+
+
+def gsa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  heads: int) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return gsa_attention_plain(q, k, v, heads=heads)
+    library.require_cuda("gsa_attention", q, k, v)
+    B, N, C = q.shape
+    M = k.shape[1]
+    if (k.shape != (B, M, C) or v.shape != (B, M, C) or C % heads
+            or C // heads not in HEAD_DIMS or not 0 < M <= MAX_KEYS):
+        raise ValueError(f"gsa_attention: unsupported shapes q{tuple(q.shape)}"
+                         f" k{tuple(k.shape)} v{tuple(v.shape)} heads={heads}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError("gsa_attention: q, k, v must share a dtype")
+    out = torch.empty_like(q)
+    lib = library.load_library()
+    err = lib.stx_gsa_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, M, C,
+        heads, library.dtype_code(q.dtype), library.stream_of(q))
+    library.check(err, "gsa_attention")
+    library.launches["gsa_attention"] += 1
+    return out

@@ -1,0 +1,148 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+All sources in `stitchax_torch/csrc/*.cu` have a plain `extern "C"`
+interface and no PyTorch headers, so ONE `nvcc` call compiles them into one
+shared library (seconds, not the minutes a PyTorch-extension build takes),
+which is loaded with `ctypes`. The build runs at first use, into
+`stitchax_torch/_build/` (gitignored), keyed by a hash of the sources.
+Nothing is built or loaded at import time: the module imports on machines
+without `nvcc` or a GPU, where only the plain PyTorch versions run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+# dtype codes of the C interface (csrc/common.cuh)
+FLOAT32, BFLOAT16 = 0, 1
+
+# launches of each kernel, bumped by its wrapper right after a launch
+launches: Dict[str, int] = {"gsa_attention": 0, "cost_lookup": 0,
+                            "tps_grid": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha1()
+    for p in sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libstitchax_kernels_{_digest()}.so"
+
+
+def find_nvcc() -> str:
+    cand = [os.path.join(os.environ[v], "bin", "nvcc")
+            for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
+    which = shutil.which("nvcc")
+    if which:
+        cand.append(which)
+    cand.append("/usr/local/cuda/bin/nvcc")
+    for c in cand:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the stitchax_torch "
+                       "CUDA kernels cannot be built")
+
+
+def build() -> dict:
+    """Compile every csrc/*.cu into one .so with a single nvcc call.
+    Returns {cmd, seconds, path, ptxas}; raises on failure."""
+    out = library_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+           *[str(s) for s in sources()]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    log = proc.stdout + proc.stderr
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if re.search(r"Compiling entry|Used \d+ registers|spill", ln)]
+    return {"cmd": " ".join(cmd), "seconds": secs, "path": str(out),
+            "ptxas": ptxas}
+
+
+def ensure_built() -> Optional[dict]:
+    """Build the library unless these sources are built already. Returns
+    the build's record (see `build`), or None when nothing was built."""
+    return None if library_path().exists() else build()
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    ensure_built()
+    lib = ctypes.CDLL(str(library_path()))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.stx_gsa_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                      ci, vp]
+    lib.stx_cost_lookup.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.stx_tps_grid.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, vp]
+    for fn in (lib.stx_gsa_attention, lib.stx_cost_lookup, lib.stx_tps_grid):
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def dtype_code(dtype) -> int:
+    if dtype == torch.float32:
+        return FLOAT32
+    if dtype == torch.bfloat16:
+        return BFLOAT16
+    raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """A kernel wrapper takes CUDA tensors only from here on: contiguous,
+    on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: tensors must share one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
