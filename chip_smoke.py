@@ -6,24 +6,35 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 Phases, each printing one JSON line before the next begins:
 
-  device         card name, count, nvidia-smi name and power limit
-  build          the single nvcc call that builds every csrc/*.cu kernel
-  stitch         Stitcher.stitch on a seeded 384x448 pair, bf16, on the card:
-                 per-stage ms, peak memory, canvas, kernel launches per stitch
-  kernels        each kernel against its plain PyTorch version at the shapes
-                 the stitch gave it: max |diff|, kernel / plain / library ms,
-                 and the least time the card could take (bound_ms)
-  stitch_vs_cpu  the same stitch in fp32 on the card and on the CPU, compared
+  device                 card name, count, nvidia-smi name and power limit
+  build                  the single nvcc call that builds every csrc/*.cu
+                         kernel
+  stitch                 Stitcher.stitch with `inf_configs/fast_cv_g8` on a
+                         seeded 384x448 pair, bf16, on the card: per-stage
+                         ms, peak memory, canvas, kernel launches per stitch
+  stitch_default         the same with the default configuration
+                         `all_img1_with_inpaint_g12_transRef` (TransRef
+                         inpainter, grid 12, the composition net), which
+                         also times the inpainter and the composition
+  kernels                each kernel against its plain PyTorch version at
+                         the shapes the stitches gave it: max |diff|, kernel
+                         / plain / library ms, and the least time the card
+                         could take (bound_ms)
+  stitch_vs_cpu          the fast_cv_g8 stitch in fp32 on the card and on
+                         the CPU, compared
+  stitch_vs_cpu_default  the same for the default configuration, down to
+                         the composition and the learned masks
 
 Then the kernel table (one JSON object), the nvidia-smi line, and the final
 `{"ok": true, "device": ...}` line. Any failed phase exits non-zero without
 the final line. Imports nothing of JAX or of the JAX package.
 
-    python3 chip_smoke.py --profile [TRACE.json]
+    python3 chip_smoke.py --profile [TRACE.json] [--config NAME]
 
-instead traces one warm bf16 stitch of the same pair with torch.profiler
-and prints where the device time goes (top kernels by device time, the
-device's busy share of the stitch), optionally writing a Chrome trace.
+instead traces one warm bf16 stitch of the same pair (with fast_cv_g8, or
+the named configuration) with torch.profiler and prints where the device
+time goes (top kernels by device time, the device's busy share of the
+stitch), optionally writing a Chrome trace.
 """
 
 from __future__ import annotations
@@ -40,6 +51,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = "results/ckpt_r05_bf16.npz"
 CKPT = os.path.join(REPO, WEIGHTS)
+TRANSREF_WEIGHTS = "results/transref_ckpt_r05_bf16.msgpack"
+TRANSREF_CKPT = os.path.join(REPO, TRANSREF_WEIGHTS)
+FAST, DEFAULT = "fast_cv_g8", "all_img1_with_inpaint_g12_transRef"
 SEED = 0
 PAIR_HW = (384, 448)            # the demo pair's size
 
@@ -48,10 +62,13 @@ HBM_BPS = 3.35e12
 PEAK = {"bf16": 989e12, "fp32": 67e12}
 
 # kernel vs plain version on the same inputs, at main-path shapes. K1
-# (gsa_attention) is held to one bf16 ulp of its largest |output|
-# (`bf16_ulp`): both versions take the softmax and the sums in fp32 and
-# differ only in summation order before the one rounding to bf16.
+# (gsa_attention) and K4 (window_attention, in bf16) are held to one bf16
+# ulp of their largest |output| (`bf16_ulp`): both versions take the
+# softmax and the sums in fp32 and differ only in summation order before
+# the one rounding to bf16.
 TOL = {
+    # K4 in fp32: summation order only
+    "window_attention_fp32": 2e-5,
     # every product and sum rounded on its own in both: bit-equal
     "cost_lookup": 0.0,
     # fp32 log and accumulation over N centers, order and fma differences
@@ -66,6 +83,18 @@ STITCH_TOL = {
     "flow_mean_px": 5e-4,        # ... and mean |diff|
     "canvas_box_px": 0.0,        # canvas bounds, truncated to integers
     "blend_psnr_db": 80.0,       # new_blend_image PSNR, card vs CPU
+}
+# the default configuration's stitch in fp32, card vs CPU, with the trained
+# weights: about 10x of what an H100 read (PERF.md section 2). A canvas
+# mask that flips at a threshold tie moves the learned masks by up to 1 at
+# that pixel (an H100 read a 0.17 max), so they are held by their mean and
+# by the share of values that moved by more than 1e-2, as the CPU tests
+# hold thresholded masks
+STITCH_DEFAULT_TOL = {
+    "composition_psnr_db": 85.0,       # read 105.27 dB
+    "learned_mask_mean_abs": 1e-4,     # read 1.04e-5
+    "learned_mask_moved_share": 1e-3,  # share with |diff| > 1e-2
+    "blend_psnr_db": 85.0,             # ave_fusion, read 105.75 dB
 }
 
 
@@ -157,13 +186,111 @@ GSA_CALLS = [(2, 128 * 128, 128, 4, 1), (2, 64 * 64, 256, 8, 1),
 GSA_KEYS = 256
 # K3 per decoder iteration: P = 2 directions x 64 x 64 pixels, 64x64 maps
 COST_P, COST_HW, COST_R, DECODER_ITERS = 2 * 64 * 64, 64, 4, 12
+# K4 calls per stitch (B, H, W, C, heads, fused, calls): the LSA blocks of
+# stage 1 and 2 of the context encoder (both images, B=2) and the feature
+# encoder (per image, B=1), whose q/k/v are strided thirds of one fused
+# qkv product with broadcast biases; and the cost perceiver's three
+# vertical local blocks (2 directions x 8 latents), contiguous streams
+WINDOW_CALLS = [(2, 128, 128, 128, 4, True, 1), (2, 64, 64, 256, 8, True, 1),
+                (1, 128, 128, 128, 4, True, 2), (1, 64, 64, 256, 8, True, 2),
+                (16, 64, 64, 128, 8, False, 3)]
+WINDOW_WS = 7
+# launches per stitch of either configuration (same 512^2 align); the TPS
+# grid (K2) launches at least once
+EXPECT_LAUNCHES = {"gsa_attention": 9, "cost_lookup": 12,
+                   "window_attention": 9}
+
+
+def window_inputs(B, H, W, C, heads, fused, dtype, g):
+    """K4's inputs as the main path gives them: with `fused` the streams
+    are the strided thirds of one (B, H, W, 3C) tensor and the q/k biases
+    one row broadcast over the window (stride 0)."""
+    import torch
+    dev = torch.device("cuda")
+    T = WINDOW_WS * WINDOW_WS
+    if fused:
+        qkv = torch.randn(B, H, W, 3 * C, device=dev, generator=g).to(dtype)
+        qx, kx, vx = qkv.split(C, -1)
+        bias = (torch.randn(3 * C, device=dev, generator=g) * .3).to(dtype)
+        qb, kb, vb = bias.split(C)
+        return qx, kx, vx, qb.expand(T, C), kb.expand(T, C), vb[None]
+    qx, kx, vx = (torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+                  for _ in range(3))
+    qb, kb = ((torch.randn(T, C, device=dev, generator=g) * .3).to(dtype)
+              for _ in range(2))
+    vb = (torch.randn(1, C, device=dev, generator=g) * .3).to(dtype)
+    return qx, kx, vx, qb, kb, vb
+
+
+def window_rows(g, launches):
+    """K4 against its plain version at each main-path shape, in fp32 and
+    bf16, and timed in bf16 beside its bound, its plain version and
+    F.scaled_dot_product_attention on the already partitioned and biased
+    (B*nW, heads, 49, d) tensors (the yardstick; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stitchax_torch.ops.kernels import window_attention as wa
+
+    ws, T = WINDOW_WS, WINDOW_WS * WINDOW_WS
+    detail = []
+    err = ms = plain = lib = bnd = 0.0
+    bound_share = {"bytes": 0.0, "operations": 0.0}
+    for B, H, W, C, heads, fused, calls in WINDOW_CALLS:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = window_inputs(B, H, W, C, heads, fused, dtype, g)
+            got = wa.window_attention(*args, heads=heads, ws=ws)
+            want = wa.window_attention_plain(*args, heads=heads, ws=ws)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            tol = (TOL["window_attention_fp32"] if dtype == torch.float32
+                   else bf16_ulp(want.float().abs().max().item()))
+            entry = {"kernel": "window_attention", "B": B, "H": H, "W": W,
+                     "C": C, "heads": heads, "fused_qkv": fused,
+                     "calls": calls, "dtype": str(dtype).split(".")[-1],
+                     "max_abs_err": e, "tol": tol}
+            if dtype == torch.bfloat16:
+                d = C // heads
+                q, k, v = wa.biased_windows(*args, ws)
+                qh, kh, vh = (t.reshape(-1, T, heads, d).transpose(1, 2)
+                              .contiguous() for t in (q, k, v))
+                t_k = cuda_time(lambda: wa.window_attention(
+                    *args, heads=heads, ws=ws))
+                t_p = cuda_time(lambda: wa.window_attention_plain(
+                    *args, heads=heads, ws=ws), iters=5)
+                t_l = cuda_time(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh))
+                n_win = q.shape[0] * q.shape[1]
+                # q, k, v read once, out written once (bf16), biases once
+                nbytes = 2 * (4 * B * H * W * C + 2 * T * C + C)
+                b, by = bound_ms(nbytes, 4.0 * n_win * T * T * C,
+                                 PEAK["bf16"])
+                entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                             bound_ms=b, bound_by=by)
+                ms += calls * t_k
+                plain += calls * t_p
+                lib += calls * t_l
+                bnd += calls * b
+                bound_share[by] += calls * b
+            err = max(err, e)
+            detail.append(entry)
+    row = {"name": "window_attention", "route": "cuda",
+           "source": "stitchax_torch/csrc/window_attention.cu",
+           "replaces": "tools/exp_window_attn.py:96",
+           "launches": launches["window_attention"], "max_abs_err": err,
+           "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+           "bound_by": max(bound_share, key=bound_share.get),
+           "library_ms": lib}
+    return row, detail
 
 
 def kernel_rows(tps_inputs, launches):
     """Hold each kernel against its plain version on the card at the
-    main-path shapes and time it. `tps_inputs` are the (ctrl, kernel_w,
-    affine_w, out_h, out_w) the stitch gave K2. Returns the kernel table
-    rows and one entry per call shape, each with its tolerance."""
+    main-path shapes and time it. `tps_inputs` maps each configuration to
+    the (ctrl, kernel_w, affine_w, out_h, out_w) its stitch gave K2; the
+    K2 row is the default configuration's. `launches` are the default
+    configuration's per stitch. Returns the kernel table rows and one entry
+    per call shape, each with its tolerance."""
     import torch
     import torch.nn.functional as F
 
@@ -267,42 +394,53 @@ def kernel_rows(tps_inputs, launches):
                  "bound_ms": DECODER_ITERS * b, "bound_by": by,
                  "library_ms": DECODER_ITERS * t_l})
 
-    # K2
-    ctrl, kw, aw, out_h, out_w = tps_inputs
-    N = ctrl.shape[0]
-    got = tps_grid.tps_grid(ctrl, kw, aw, out_h, out_w)
-    want = tps_grid.tps_grid_plain(ctrl, kw, aw, out_h, out_w)
-    torch.cuda.synchronize()
-    e = (got - want).abs().max().item()
-    t_k = cuda_time(lambda: tps_grid.tps_grid(ctrl, kw, aw, out_h, out_w))
-    t_p = cuda_time(lambda: tps_grid.tps_grid_plain(ctrl, kw, aw, out_h,
-                                                    out_w), iters=5)
-    # per (pixel, center): 2 sub + 3 for d2 + log + 2 mul + 2 fma ~ 12 ops
-    b, by = bound_ms(N * 16 + 24 + out_h * out_w * 8,
-                     12.0 * out_h * out_w * N, PEAK["fp32"])
-    detail.append({"kernel": "tps_grid", "N": N, "out_h": out_h,
-                   "out_w": out_w, "calls": 1, "max_abs_err": e,
-                   "tol": TOL["tps_grid"], "ms": t_k, "plain_ms": t_p,
-                   "bound_ms": b, "bound_by": by})
+    # K2, at each configuration's canvas and control points
+    for config, (ctrl, kw, aw, out_h, out_w) in tps_inputs.items():
+        N = ctrl.shape[0]
+        got = tps_grid.tps_grid(ctrl, kw, aw, out_h, out_w)
+        want = tps_grid.tps_grid_plain(ctrl, kw, aw, out_h, out_w)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        t_k = cuda_time(lambda: tps_grid.tps_grid(ctrl, kw, aw, out_h,
+                                                  out_w))
+        t_p = cuda_time(lambda: tps_grid.tps_grid_plain(ctrl, kw, aw, out_h,
+                                                        out_w), iters=5)
+        # per (pixel, center): 2 sub + 3 for d2 + log + 2 mul + 2 fma ~ 12
+        b, by = bound_ms(N * 16 + 24 + out_h * out_w * 8,
+                         12.0 * out_h * out_w * N, PEAK["fp32"])
+        detail.append({"kernel": "tps_grid", "config": config, "N": N,
+                       "out_h": out_h, "out_w": out_w, "calls": 1,
+                       "max_abs_err": e, "tol": TOL["tps_grid"], "ms": t_k,
+                       "plain_ms": t_p, "bound_ms": b, "bound_by": by})
     rows.append({"name": "tps_grid", "route": "cuda",
                  "source": "stitchax_torch/csrc/tps_grid.cu",
                  "replaces": "stitchax/ops/pallas/tps_kernel.py:53",
                  "launches": launches["tps_grid"], "max_abs_err": e,
                  "ms": t_k, "plain_ms": t_p, "bound_ms": b, "bound_by": by,
                  "library_ms": None})
+
+    # K4
+    row, more = window_rows(g, launches)
+    rows.append(row)
+    detail += more
     return rows, detail
 
 
 # ------------------------------- stitch --------------------------------------
 
-def build_models(dtype, device):
-    """The stitch's models with ckpt_r05's trained weights (tracked in the
-    repo); raises if the checkout lacks them."""
+def build_models(dtype, device, config=FAST):
+    """The configuration's models with trained weights (tracked in the
+    repo): ckpt_r05's flow and homo nets, and for the default configuration
+    its comp net and the TransRef checkpoint. Raises if the checkout lacks
+    them."""
     from stitchax_torch.run.stitcher import StitchModels
-    if not os.path.isfile(CKPT):
-        raise FileNotFoundError(f"{CKPT} is missing: the smoke stitches "
-                                "with the trained weights")
-    return StitchModels.from_npz(CKPT, device, dtype)
+    default = config == DEFAULT
+    for path in [CKPT] + ([TRANSREF_CKPT] if default else []):
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"{path} is missing: the smoke stitches "
+                                    "with the trained weights")
+    return StitchModels.from_npz(CKPT, device, dtype, config,
+                                 transref=TRANSREF_CKPT if default else None)
 
 
 def check_finite(out) -> None:
@@ -311,7 +449,9 @@ def check_finite(out) -> None:
             raise RuntimeError(f"stitch output {k} is not finite")
 
 
-def stitch_phase(img1, img2):
+def stitch_phase(img1, img2, config=FAST):
+    """One warm-up stitch, then the launch counts set to 0, one timed bf16
+    stitch, the counts read. Returns the counts and K2's inputs."""
     import torch
 
     from stitchax_torch.ops.kernels import library
@@ -319,9 +459,9 @@ def stitch_phase(img1, img2):
     from stitchax_torch.tps.solve import tps_fit
 
     t0 = time.perf_counter()
-    models = build_models(torch.bfloat16, "cuda")
+    models = build_models(torch.bfloat16, "cuda", config)
     load_s = time.perf_counter() - t0
-    stitcher = Stitcher(models, device="cuda")
+    stitcher = Stitcher(models, device="cuda", config=config)
     warm = {}
     stitcher.stitch(img1, img2, timings=warm)          # first call, warm-up
     torch.cuda.synchronize()
@@ -333,22 +473,27 @@ def stitch_phase(img1, img2):
     total_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(library.launches)
     check_finite(out)
-    expect = {"gsa_attention": 9, "cost_lookup": 12}
     if (any(n == 0 for n in launches.values())
-            or any(launches[k] != n for k, n in expect.items())):
-        raise RuntimeError(f"kernel launches per stitch {launches}, "
-                           f"expected {expect} and tps_grid >= 1")
-    emit({"phase": "stitch", "dtype": "bfloat16", "weights": WEIGHTS,
-          "weights_load_s": load_s, "pair_hw": list(PAIR_HW),
-          "stitch_ms": total_ms, **timings,
-          "first_call": warm,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "canvas_hw": out["canvas_hw"].tolist(),
-          "true_hw": out["true_hw"].tolist(),
-          "control_points": int(out["control_valid"].size),
-          "control_valid": int(out["control_valid"].sum()),
-          "mask2_mean": float(out["mask2"].mean()),
-          "launches_per_stitch": launches})
+            or any(launches[k] != n for k, n in EXPECT_LAUNCHES.items())):
+        raise RuntimeError(f"{config}: kernel launches per stitch "
+                           f"{launches}, expected {EXPECT_LAUNCHES} and "
+                           "tps_grid >= 1")
+    res = {"phase": "stitch" if config == FAST else "stitch_default",
+           "config": config, "dtype": "bfloat16", "weights": WEIGHTS,
+           "weights_load_s": load_s, "pair_hw": list(PAIR_HW),
+           "stitch_ms": total_ms, **timings, "first_call": warm,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "canvas_hw": out["canvas_hw"].tolist(),
+           "true_hw": out["true_hw"].tolist(),
+           "control_points": int(out["control_valid"].size),
+           "control_valid": int(out["control_valid"].sum()),
+           "mask2_mean": float(out["mask2"].mean()),
+           "launches_per_stitch": launches}
+    if config == DEFAULT:
+        res["transref_weights"] = TRANSREF_WEIGHTS
+        res["composition_hw"] = list(out["composition"].shape[:2])
+        res["learned_mask1_mean"] = float(out["learned_mask1"].mean())
+    emit(res)
     # K2's inputs as tps_backward_warp forms them from this stitch's
     # control points, at this stitch's (bucketed) canvas
     out_h, out_w = (int(v) for v in out["canvas_hw"])
@@ -364,8 +509,14 @@ def stitch_phase(img1, img2):
     return launches, tps_inputs
 
 
-def stitch_vs_cpu_phase(img1, img2):
-    """The same stitch in fp32 on the card (TF32 off) and on the CPU."""
+def _psnr(a, b) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def _fp32_stitches(img1, img2, config):
+    """The configuration's stitch in fp32 on the card (TF32 off) and on the
+    CPU, from one set of weights. Returns (card, cpu, card_s, cpu_s)."""
     import copy
 
     import torch
@@ -374,18 +525,68 @@ def stitch_vs_cpu_phase(img1, img2):
     from stitchax_torch.utils.precision import fp32_exact
 
     fp32_exact()
-    cpu_models = build_models(torch.float32, "cpu")
-    gpu_models = StitchModels(copy.deepcopy(cpu_models.flow_model),
-                              copy.deepcopy(cpu_models.homo_model), "cuda",
-                              torch.float32)
+    cpu_models = build_models(torch.float32, "cpu", config)
+    gpu_models = StitchModels(
+        *(copy.deepcopy(m) for m in (cpu_models.flow_model,
+                                     cpu_models.homo_model)),
+        "cuda", torch.float32,
+        *(copy.deepcopy(m) for m in (cpu_models.comp_model,
+                                     cpu_models.transref_model)))
     t0 = time.perf_counter()
-    g = Stitcher(gpu_models, device="cuda").stitch(img1, img2)
+    g = Stitcher(gpu_models, device="cuda", config=config).stitch(img1, img2)
     gpu_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    c = Stitcher(cpu_models, device="cpu").stitch(img1, img2)
+    c = Stitcher(cpu_models, device="cpu", config=config).stitch(img1, img2)
     cpu_s = time.perf_counter() - t0
     check_finite(g)
     check_finite(c)
+    return g, c, gpu_s, cpu_s
+
+
+def _check(res, tol, phase) -> None:
+    res["tol"] = tol
+    misses = [k for k, t in tol.items()
+              if (res[k] < t if k.endswith("_db") else res[k] > t)]
+    res["ok"] = not misses
+    emit(res)
+    if misses:
+        raise RuntimeError(f"{phase}: card vs CPU outside tolerance: "
+                           f"{misses}")
+
+
+def stitch_vs_cpu_default_phase(img1, img2):
+    """The default configuration's stitch in fp32, card vs CPU: the
+    composition, the learned masks and ave_fusion."""
+    g, c, gpu_s, cpu_s = _fp32_stitches(img1, img2, DEFAULT)
+    res = {"phase": "stitch_vs_cpu_default", "config": DEFAULT,
+           "dtype": "float32", "gpu_s": gpu_s, "cpu_s": cpu_s,
+           "true_hw": [g["true_hw"].tolist(), c["true_hw"].tolist()],
+           "composition_hw": [list(g["composition"].shape[:2]),
+                              list(c["composition"].shape[:2])]}
+    if (g["true_hw"].tolist() != c["true_hw"].tolist()
+            or g["composition"].shape != c["composition"].shape):
+        raise RuntimeError(f"card and CPU canvases differ: {res}")
+    lm = np.concatenate([np.abs(g[k] - c[k]).ravel()
+                         for k in ("learned_mask1", "learned_mask2")])
+    res.update(composition_psnr_db=_psnr(g["composition"], c["composition"]),
+               learned_mask_max_abs=float(lm.max()),
+               learned_mask_mean_abs=float(lm.mean()),
+               learned_mask_moved_share=float(np.mean(lm > 1e-2)),
+               canvas_mask_flip_share=float(np.mean(np.concatenate([
+                   np.abs(g[k] - c[k]).ravel() > 1e-3
+                   for k in ("mask1", "mask2")]))),
+               blend_psnr_db=_psnr(g["new_blend_image"],
+                                   c["new_blend_image"]),
+               flow_max_px=float(np.abs(g["flow"] - c["flow"]).max()),
+               control_valid=[int(g["control_valid"].sum()),
+                              int(c["control_valid"].sum())])
+    _check(res, STITCH_DEFAULT_TOL, "stitch_vs_cpu_default")
+
+
+def stitch_vs_cpu_phase(img1, img2):
+    """The fast_cv_g8 stitch in fp32 on the card (TF32 off) and on the
+    CPU."""
+    g, c, gpu_s, cpu_s = _fp32_stitches(img1, img2, FAST)
     fd = np.abs(g["flow"] - c["flow"])
     res = {"phase": "stitch_vs_cpu", "dtype": "float32", "weights": WEIGHTS,
            "gpu_s": gpu_s, "cpu_s": cpu_s,
@@ -394,21 +595,10 @@ def stitch_vs_cpu_phase(img1, img2):
            "canvas_box_px": float(np.abs(g["canvas_box"]
                                          - c["canvas_box"]).max()),
            "true_hw": [g["true_hw"].tolist(), c["true_hw"].tolist()]}
-    if g["true_hw"].tolist() == c["true_hw"].tolist():
-        a = g["new_blend_image"].astype(np.float64)
-        b = c["new_blend_image"].astype(np.float64)
-        mse = float(np.mean((a - b) ** 2))
-        res["blend_psnr_db"] = (float("inf") if mse == 0
-                                else 10 * np.log10(255.0 ** 2 / mse))
-    else:
-        res["blend_psnr_db"] = float("-inf")
-    res["tol"] = STITCH_TOL
-    misses = [k for k, tol in STITCH_TOL.items()
-              if (res[k] < tol if k == "blend_psnr_db" else res[k] > tol)]
-    res["ok"] = not misses
-    emit(res)
-    if misses:
-        raise RuntimeError(f"card vs CPU stitch outside tolerance: {misses}")
+    res["blend_psnr_db"] = (
+        _psnr(g["new_blend_image"], c["new_blend_image"])
+        if g["true_hw"].tolist() == c["true_hw"].tolist() else float("-inf"))
+    _check(res, STITCH_TOL, "stitch_vs_cpu")
 
 
 def _busy_us(intervals) -> float:
@@ -421,14 +611,14 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile_phase(img1, img2, trace_path=None) -> None:
+def profile_phase(img1, img2, trace_path=None, config=FAST) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from stitchax_torch.run.stitcher import Stitcher
 
-    models = build_models(torch.bfloat16, "cuda")
-    stitcher = Stitcher(models, device="cuda")
+    models = build_models(torch.bfloat16, "cuda", config)
+    stitcher = Stitcher(models, device="cuda", config=config)
     stitcher.stitch(img1, img2)                          # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -446,7 +636,8 @@ def profile_phase(img1, img2, trace_path=None) -> None:
                        getattr(a, "self_cuda_time_total", 0.0))
 
     top = sorted(prof.key_averages(), key=lambda a: -self_device_us(a))[:25]
-    emit({"phase": "profile", "weights": WEIGHTS, "stitch_ms": wall_us / 1e3,
+    emit({"phase": "profile", "config": config, "weights": WEIGHTS,
+          "stitch_ms": wall_us / 1e3,
           **timings, "device_events": len(dev),
           "device_busy_ms": busy / 1e3 if dev else None,
           "device_busy_share": busy / wall_us if dev else None,
@@ -474,12 +665,20 @@ def main() -> int:
           **(b or {"path": str(library.library_path())})})
 
     img1, img2 = seeded_pair()
-    if sys.argv[1:2] == ["--profile"]:
-        profile_phase(img1, img2, sys.argv[2] if len(sys.argv) > 2 else None)
+    args = sys.argv[1:]
+    if args[:1] == ["--profile"]:
+        config = FAST
+        if "--config" in args:
+            i = args.index("--config")
+            config = args[i + 1]
+            del args[i:i + 2]
+        profile_phase(img1, img2, args[1] if len(args) > 1 else None, config)
         return 0
-    launches, tps_inputs = stitch_phase(img1, img2)
+    _, tps_fast = stitch_phase(img1, img2, FAST)
+    launches, tps_default = stitch_phase(img1, img2, DEFAULT)
 
-    rows, detail = kernel_rows(tps_inputs, launches)
+    rows, detail = kernel_rows({FAST: tps_fast, DEFAULT: tps_default},
+                               launches)
     bad = sorted({d["kernel"] for d in detail
                   if not d["max_abs_err"] <= d["tol"]})
     emit({"phase": "kernels", "card": smi, "calls": detail,
@@ -489,6 +688,7 @@ def main() -> int:
                            f"{bad}")
 
     stitch_vs_cpu_phase(img1, img2)
+    stitch_vs_cpu_default_phase(img1, img2)
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -1,11 +1,18 @@
-"""Classical push-pull inpainter, registered as `cv_inpainter`
-(port of stitchax/compose/inpainters.py:31, :83). Images (H, W, C) float32
-in [0, 255]; mask (H, W, 1) with 1 = hole."""
+"""Inpainters, by name (port of stitchax/compose/inpainters.py): the
+classical push-pull `cv_inpainter` (:31, :83) and `transref_inpainter`
+(:94-138). Images (H, W, C) float32 in [0, 255]; mask (H, W, 1) with
+1 = hole."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+
+from ..models.transref import TransRefBase
+from ..ops.sampling import image_resize
+from ..utils.precision import call_in
 
 
 def _down2(img: torch.Tensor) -> torch.Tensor:
@@ -57,11 +64,54 @@ class DiffusionJacobiInpainter:
         return push_pull_inpaint(image, mask)
 
 
-INPAINTERS = {"cv_inpainter": DiffusionJacobiInpainter}
+class TransRefInpainter:
+    """Reference-guided transformer inpainting at a fixed square size:
+    resize the image and the control image to `size` (jax.image.resize
+    semantics), normalise to [-1, 1], fill the hole with the image's mean
+    colour outside it, run TransRef with the control image as reference,
+    composite `out * mask + detail * (1 - mask)`, resize back and clip.
+
+    `model` is a TransRefBase with trained weights, already on its device
+    in `dtype` (bf16 as stitchax runs it; outputs come back in fp32). There
+    is no random-init fallback: without a model this raises."""
+    name = "transref_inpainter"
+
+    def __init__(self, model: Optional[TransRefBase] = None, size: int = 512,
+                 dtype: torch.dtype = torch.bfloat16):
+        if model is None:
+            raise ValueError("TransRefInpainter needs a TransRefBase with "
+                             "trained weights (e.g. StitchModels.from_npz("
+                             "..., transref=<flax msgpack>))")
+        self.model, self.size, self.dtype = model, size, dtype
+
+    def _run(self, image, mask, control):
+        S = self.size
+        H, W, _ = image.shape
+        img = image_resize(image, S, S, "bilinear")
+        ref = image_resize(control, S, S, "bilinear")
+        m = (image_resize(mask.to(image.dtype), S, S, "nearest") > 0.5
+             ).to(image.dtype)
+        img_n = img / 127.5 - 1.0
+        ref_n = ref / 127.5 - 1.0
+        keep = 1 - m
+        mean = (img_n * keep).sum((0, 1)) / (keep.sum((0, 1))).clamp(min=1.0)
+        detail = img_n * keep + mean * m
+        out = call_in(self.model, self.dtype, detail[None], m[None],
+                      ref_n[None])[0]
+        comp = (out * m + detail * keep + 1.0) * 127.5
+        return image_resize(comp, H, W, "bilinear").clamp(0, 255)
+
+    def inpaint(self, image, mask, control_image=None):
+        control = image if control_image is None else control_image
+        return self._run(image, mask, control)
 
 
-def get_inpainter(name: str):
+INPAINTERS = {"cv_inpainter": DiffusionJacobiInpainter,
+              "transref_inpainter": TransRefInpainter}
+
+
+def get_inpainter(name: str, **kwargs):
     if name not in INPAINTERS:
         raise KeyError(f"inpainter {name!r} is not ported yet "
                        f"(ported: {sorted(INPAINTERS)})")
-    return INPAINTERS[name]()
+    return INPAINTERS[name](**kwargs)

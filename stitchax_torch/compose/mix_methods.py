@@ -1,8 +1,9 @@
 """Mix method `all_img1_with_inpaint` (port of
 stitchax/compose/mix_methods.py:46): fill most holes from img1 and
-model-inpaint only a thin border ring. Unbatched HWC tensors. The
-TransRef branch (reference image = the img1-filled composite) waits for
-the TransRef inpainter's port."""
+model-inpaint only a thin border ring. Unbatched HWC tensors. With the
+TransRef inpainter (`inpainter_name="transref"`) the img1-filled composite,
+clipped to [0, 255], is both the inpainting input and the reference
+(stitchax/compose/mix_methods.py:91-98)."""
 
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ def _use_inpaint_if_nonzero(inpaint_img, inpaint_img_mask, fallback_img,
 
 def all_img1_with_inpaint(tps_h_warp, tps_h_warp_mask, output1, mask1,
                           final_warp, occlusion_mask,
-                          inpaint: Optional[Callable] = None) -> MixResult:
+                          inpaint: Optional[Callable] = None,
+                          inpainter_name: str = "") -> MixResult:
     dtype = tps_h_warp.dtype
     inv_mask1 = 1.0 - (mask1 > 0.5).to(dtype)
     tps_final_warp = (final_warp * occlusion_mask * mask1
@@ -56,7 +58,11 @@ def all_img1_with_inpaint(tps_h_warp, tps_h_warp_mask, output1, mask1,
     inpaint_by_other = (inpaint_by_other > 0.05).to(dtype)
     inpaint_img = inpaint_img * (1 - inpaint_by_other)
     if inpaint is not None:
-        inpaint_img = inpaint(inpaint_img, inpaint_by_other)
+        if inpainter_name == "transref":
+            control = img1_filled.clamp(0, 255)
+            inpaint_img = inpaint(control, inpaint_by_other, control)
+        else:
+            inpaint_img = inpaint(inpaint_img, inpaint_by_other)
 
     inpaint_img_mask = tps_h_warp_mask
     inpaint_img = inpaint_img * inpaint_img_mask

@@ -11,12 +11,22 @@ arrays: {'params': ..., 'batch_stats': ...}) onto the port's state_dict.
 The port's modules carry stitchax's module names, so the map is a rename of
 the leaf plus the inverse of stitchax/convert.py:45-60: flax conv kernels
 HWIO -> OIHW, Dense kernels (in, out) -> (out, in), LayerNorm/BatchNorm
-scale -> weight, batch_stats mean/var -> running_mean/running_var.
+scale -> weight, batch_stats mean/var -> running_mean/running_var. A flax
+`ConvTranspose` kernel (kH, kW, I, O) becomes torch's `ConvTranspose2d`
+weight (I, O, kH, kW) flipped in space: flax correlates the dilated input
+with the kernel as it is, torch with the kernel flipped (the inverse of
+stitchax/convert.py `conv_transpose_kernel`); its padding (lo, hi) maps to
+torch's padding k-1-lo and output_padding hi-lo.
+
+`load_flax_msgpack` reads flax's msgpack serialisation (e.g.
+results/transref_ckpt_r05_bf16.msgpack, written by
+`flax.serialization.to_bytes`) with numpy alone.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import struct
+from typing import Any, Collection, Dict
 
 import numpy as np
 import torch
@@ -66,9 +76,12 @@ def _flatten(tree: Dict[str, Any], prefix=()):
 _LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
-def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def params_from_jax(variables: Dict[str, Any],
+                    conv_transpose: Collection[str] = ()
+                    ) -> Dict[str, torch.Tensor]:
     """stitchax variables {'params': ..., 'batch_stats': ...} -> the port's
-    state_dict (float32 tensors)."""
+    state_dict (float32 tensors). `conv_transpose` names the modules
+    (dotted paths) that are flax ConvTransposes."""
     sd: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         if collection not in ("params", "batch_stats"):
@@ -77,7 +90,10 @@ def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             *mods, leaf = path
             if leaf == "kernel":
                 leaf = "weight"
-                if arr.ndim == 4:            # HWIO -> OIHW
+                if ".".join(mods) in conv_transpose:
+                    # HWIO, flipped in space -> (I, O, kH, kW)
+                    arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+                elif arr.ndim == 4:          # HWIO -> OIHW
                     arr = arr.transpose(3, 2, 0, 1)
                 elif arr.ndim == 2:          # (in, out) -> (out, in)
                     arr = arr.T
@@ -86,7 +102,8 @@ def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             name = ".".join([*mods, leaf])
             if name in sd:
                 raise KeyError(f"two stitchax leaves map onto {name}")
-            sd[name] = torch.tensor(arr, dtype=torch.float32)
+            sd[name] = torch.tensor(np.ascontiguousarray(arr),
+                                    dtype=torch.float32)
     return sd
 
 
@@ -95,7 +112,9 @@ def load_jax_params(module: torch.nn.Module,
     """Fill every parameter and buffer of `module` from a stitchax
     variables tree; raises on any leaf left unused, any parameter left
     unfilled, or any shape mismatch."""
-    sd = params_from_jax(variables)
+    sd = params_from_jax(variables, {
+        name for name, m in module.named_modules()
+        if isinstance(m, torch.nn.ConvTranspose2d)})
     own = module.state_dict()
     unused = sorted(set(sd) - set(own))
     unfilled = sorted(set(own) - set(sd))
@@ -110,3 +129,106 @@ def load_jax_params(module: torch.nn.Module,
                              f"{tuple(own[k].shape)}")
     module.load_state_dict(sd, strict=True)
     return module
+
+
+# ------------------------- flax msgpack checkpoints ---------------------------
+
+_EXT_NDARRAY = 1       # flax.serialization's ext type code of an array
+
+
+def _array_from(shape, dtype_name: str, buf: bytes) -> np.ndarray:
+    if dtype_name == "bfloat16":
+        a = decode_bf16(np.frombuffer(buf, np.uint16))
+    else:
+        a = np.frombuffer(buf, np.dtype(dtype_name)).copy()
+    return a.reshape(shape)
+
+
+class _Reader:
+    """msgpack decoder for what a flax state dict holds: maps, arrays,
+    str/bin, ints, floats, nil, bool and flax's ext type 1 (an ndarray as
+    [shape, dtype name, buffer])."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise ValueError("msgpack: truncated input")
+        b = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return b
+
+    def unpack(self, fmt: str):
+        return struct.unpack(">" + fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def read(self) -> Any:
+        t = self.take(1)[0]
+        if t <= 0x7f:
+            return t
+        if t >= 0xe0:
+            return t - 0x100
+        if 0x80 <= t <= 0x8f:
+            return self.map(t & 0x0f)
+        if 0x90 <= t <= 0x9f:
+            return self.array(t & 0x0f)
+        if 0xa0 <= t <= 0xbf:
+            return self.take(t & 0x1f).decode()
+        if 0xd4 <= t <= 0xd8:
+            return self.ext(1 << (t - 0xd4))
+        simple = {0xc0: None, 0xc2: False, 0xc3: True}
+        if t in simple:
+            return simple[t]
+        sized = {0xc4: ("B", bytes), 0xc5: ("H", bytes), 0xc6: ("I", bytes),
+                 0xd9: ("B", str), 0xda: ("H", str), 0xdb: ("I", str),
+                 0xdc: ("H", list), 0xdd: ("I", list), 0xde: ("H", dict),
+                 0xdf: ("I", dict), 0xc7: ("B", "ext"), 0xc8: ("H", "ext"),
+                 0xc9: ("I", "ext")}
+        if t in sized:
+            fmt, kind = sized[t]
+            n = self.unpack(fmt)
+            if kind is bytes:
+                return self.take(n)
+            if kind is str:
+                return self.take(n).decode()
+            if kind is list:
+                return self.array(n)
+            if kind is dict:
+                return self.map(n)
+            return self.ext(n)
+        scalar = {0xca: "f", 0xcb: "d", 0xcc: "B", 0xcd: "H", 0xce: "I",
+                  0xcf: "Q", 0xd0: "b", 0xd1: "h", 0xd2: "i", 0xd3: "q"}
+        if t in scalar:
+            return self.unpack(scalar[t])
+        raise ValueError(f"msgpack: unsupported type byte 0x{t:02x}")
+
+    def array(self, n: int) -> list:
+        return [self.read() for _ in range(n)]
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.read()
+            out[k] = self.read()
+        return out
+
+    def ext(self, n: int) -> Any:
+        code = self.unpack("b")
+        body = _Reader(self.take(n)).read()
+        if code != _EXT_NDARRAY:
+            raise ValueError(f"msgpack: unsupported ext type {code}")
+        shape, dtype_name, buf = body
+        return _array_from(tuple(shape), dtype_name, buf)
+
+
+def load_flax_msgpack(path: str) -> Dict[str, Any]:
+    """Nested dict of numpy arrays from a `flax.serialization.to_bytes`
+    file; bf16 leaves decode exactly to float32 (as `load_npz`)."""
+    with open(path, "rb") as f:
+        r = _Reader(f.read())
+    tree = r.read()
+    if r.pos != len(r.data):
+        raise ValueError(f"{path}: trailing bytes after the msgpack object")
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: not a flax state dict")
+    return tree

@@ -1,7 +1,9 @@
 """The port's models: FlowFormer++ (twins encoders, cost perceiver, memory
-decoder) and the UDIS2 homography net."""
+decoder), the UDIS2 homography and composition nets, and TransRef."""
 
 from .flowformer import FlowFormer, FlowFormerConfig
-from .udis2 import UDIS2HomographyNet
+from .transref import TransRefBase
+from .udis2 import CompositionNet, UDIS2HomographyNet, compose_seam
 
-__all__ = ["FlowFormer", "FlowFormerConfig", "UDIS2HomographyNet"]
+__all__ = ["CompositionNet", "FlowFormer", "FlowFormerConfig",
+           "TransRefBase", "UDIS2HomographyNet", "compose_seam"]

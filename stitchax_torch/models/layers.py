@@ -46,9 +46,9 @@ class Conv(nn.Conv2d):
     """flax nn.Conv on NHWC tensors (weights kept in torch's OIHW)."""
 
     def __init__(self, cin: int, cout: int, kernel, stride=1, padding=0,
-                 groups: int = 1, bias: bool = True):
+                 groups: int = 1, bias: bool = True, dilation: int = 1):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
-                         groups=groups, bias=bias)
+                         dilation=dilation, groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

@@ -2,9 +2,11 @@
 encoder's vertical attention (port of stitchax/models/twins.py).
 
 The global-subsample attention of every GSA block runs the CUDA kernel K1
-(`ops.kernels.gsa_attention`). Context pairing follows stitchax: the
-(B, ...) context is repeated per sample (`repeat_interleave`) to the
-(B*K, ...) latent batch, not tiled like the reference's `.repeat`.
+(`ops.kernels.gsa_attention`), the windowed attention of every LSA block
+the CUDA kernel K4 (`ops.kernels.window_attention`), which reads the three
+strided thirds of the fused qkv product in place. Context pairing follows
+stitchax: the (B, ...) context is repeated per sample (`repeat_interleave`)
+to the (B*K, ...) latent batch, not tiled like the reference's `.repeat`.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.kernels.gsa_attention import gsa_attention
-from ..ops.window_attention import window_attention_split
+from ..ops.kernels.window_attention import window_attention
 from .layers import Conv, Mlp, linear_position_embedding_sine, pad_to_multiple
 
 
@@ -55,9 +57,8 @@ class LocallyGroupedAttn(nn.Module):
         qx, kx, vx = qkv.split(C, -1)
         bq, bk, bv = self.qkv.bias.split(C)
         T = self.ws * self.ws
-        out = window_attention_split(qx, kx, vx, bq.expand(T, C),
-                                     bk.expand(T, C), bv[None],
-                                     heads=self.num_heads, ws=self.ws)
+        out = window_attention(qx, kx, vx, bq.expand(T, C), bk.expand(T, C),
+                               bv[None], heads=self.num_heads, ws=self.ws)
         return self.proj(out)
 
 
@@ -175,9 +176,8 @@ class LocallyGroupedAttnRPEContext(nn.Module):
         qx = x_qk @ self.q.weight.T            # bias-free streams
         kx = x_qk @ self.k.weight.T
         vx = x @ self.v.weight.T
-        out = window_attention_split(qx, kx, vx, q_bias, k_bias,
-                                     self.v.bias[None], heads=self.num_heads,
-                                     ws=self.ws)
+        out = window_attention(qx, kx, vx, q_bias, k_bias, self.v.bias[None],
+                               heads=self.num_heads, ws=self.ws)
         return self.proj(out)
 
 

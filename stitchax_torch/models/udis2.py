@@ -1,7 +1,9 @@
-"""UDIS2 homography regression (port of stitchax/models/udis2.py; the
-composition net is not on this slice's path)."""
+"""UDIS2 homography regression and the composition net (port of
+stitchax/models/udis2.py)."""
 
 from __future__ import annotations
+
+import numpy as np
 
 import torch
 import torch.nn as nn
@@ -81,3 +83,98 @@ class UDIS2HomographyNet(nn.Module):
         f1 = self.feature_extractor(input1)[-1]
         f2 = self.feature_extractor(input2)[-1]
         return self.regress1(ccl_correlation_flow(f1, f2))
+
+
+class CompositionDownBlock(nn.Module):
+    """[2x2 max pool] -> two 3x3 dilated convs with padding 1, each + ReLU.
+    Keeps the reference's padding=1 with dilation > 1, which shrinks H/W
+    by 2*(d-1) per conv; the up block's resize recombines the shapes."""
+
+    def __init__(self, cin: int, features: int, dilation: int,
+                 pool: bool = True):
+        super().__init__()
+        self.pool = pool
+        self.conv1 = Conv(cin, features, 3, padding=1, dilation=dilation)
+        self.conv2 = Conv(features, features, 3, padding=1,
+                          dilation=dilation)
+
+    def forward(self, x):
+        if self.pool:
+            x = F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+        return F.relu(self.conv2(F.relu(self.conv1(x))))
+
+
+def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    """torch F.interpolate(mode='nearest') source rows: floor(i * in/out),
+    in fp32 as stitchax computes them (not jax.image.resize's half-pixel
+    centres, which pick other taps on the odd sizes the dilated downs
+    give)."""
+    i = np.floor(np.arange(n_out, dtype=np.float32)
+                 * np.float32(n_in / n_out)).astype(np.int64)
+    return torch.from_numpy(i).to(device)
+
+
+class CompositionUpBlock(nn.Module):
+    """Nearest resize of the coarse input to the skip's size, 3x3 conv +
+    ReLU ("half"), concat [skip, coarse], two dilated convs + ReLU."""
+
+    def __init__(self, cin: int, features: int, dilation: int):
+        super().__init__()
+        self.half = Conv(cin, features, 3, padding=1)
+        self.conv1 = Conv(2 * features, features, 3, padding=1,
+                          dilation=dilation)
+        self.conv2 = Conv(features, features, 3, padding=1,
+                          dilation=dilation)
+
+    def forward(self, x1, x2):
+        H2, W2 = x2.shape[1], x2.shape[2]
+        x1 = x1[:, _nearest_index(x1.shape[1], H2, x1.device)]
+        x1 = x1[:, :, _nearest_index(x1.shape[2], W2, x1.device)]
+        # "half" (stitchax's name) is shadowed by nn.Module.half()
+        x1 = F.relu(self._modules["half"](x1))
+        x = torch.cat([x2, x1], -1)
+        return F.relu(self.conv2(F.relu(self.conv1(x))))
+
+
+class CompositionNet(nn.Module):
+    """Siamese dilated U-Net predicting img1's seam mask from the two
+    [-1, 1] warps (the masks are not inputs of the net itself)."""
+
+    DOWNS = ((3, 32, 1), (32, 64, 2), (64, 128, 3), (128, 256, 4),
+             (256, 512, 5))
+    UPS = ((512, 256, 4), (256, 128, 3), (128, 64, 2), (64, 32, 1))
+
+    def __init__(self):
+        super().__init__()
+        for i, (cin, f, d) in enumerate(self.DOWNS):
+            setattr(self, f"down{i + 1}",
+                    CompositionDownBlock(cin, f, d, pool=i > 0))
+        for i, (cin, f, d) in enumerate(self.UPS):
+            setattr(self, f"up{i + 1}", CompositionUpBlock(cin, f, d))
+        self.out = Conv(32, 1, 1)
+
+    def _encode(self, t):
+        feats = []
+        for i in range(len(self.DOWNS)):
+            t = getattr(self, f"down{i + 1}")(t)
+            feats.append(t)
+        return feats
+
+    def forward(self, warp1, warp2, mask1, mask2):
+        x = self._encode(warp1)
+        y = self._encode(warp2)
+        res = self.up1(x[4] - y[4], x[3] - y[3])
+        res = self.up2(res, x[2] - y[2])
+        res = self.up3(res, x[1] - y[1])
+        res = self.up4(res, x[0] - y[0])
+        return torch.sigmoid(self.out(res))
+
+
+def compose_seam(out, warp1, warp2, mask1, mask2):
+    """Blend the [-1, 1] warps with the learned masks."""
+    learned_mask1 = (mask1 - mask1 * mask2) + mask1 * mask2 * out
+    learned_mask2 = (mask2 - mask1 * mask2) + mask1 * mask2 * (1 - out)
+    stitched = ((warp1 + 1.0) * learned_mask1 + (warp2 + 1.0) * learned_mask2
+                - 1.0)
+    return dict(learned_mask1=learned_mask1, learned_mask2=learned_mask2,
+                stitched_image=stitched)

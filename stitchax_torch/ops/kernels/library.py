@@ -33,7 +33,7 @@ FLOAT32, BFLOAT16 = 0, 1
 
 # launches of each kernel, bumped by its wrapper right after a launch
 launches: Dict[str, int] = {"gsa_attention": 0, "cost_lookup": 0,
-                            "tps_grid": 0}
+                            "tps_grid": 0, "window_attention": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -109,12 +109,16 @@ def load_library() -> ctypes.CDLL:
         return _lib
     ensure_built()
     lib = ctypes.CDLL(str(library_path()))
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    vp, ci, cf, cl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_longlong)
     lib.stx_gsa_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                       ci, vp]
     lib.stx_cost_lookup.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.stx_tps_grid.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, vp]
-    for fn in (lib.stx_gsa_attention, lib.stx_cost_lookup, lib.stx_tps_grid):
+    lib.stx_window_attention.argtypes = [vp] * 7 + [ci] * 6 + [cl] * 5 + [
+        ci, vp]
+    for fn in (lib.stx_gsa_attention, lib.stx_cost_lookup, lib.stx_tps_grid,
+               lib.stx_window_attention):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

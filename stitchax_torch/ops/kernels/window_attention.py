@@ -1,0 +1,113 @@
+"""K4: windowed (LSA) multi-head attention (csrc/window_attention.cu).
+
+Port of `window_attention_pallas` (tools/exp_window_attn.py:96), which
+computes stitchax's `window_attention_split`
+(stitchax/ops/window_attention.py:53). Inputs are the bias-free projected
+streams qx/kx/vx (B, H, W, C) plus per-window-position biases q_bias/k_bias
+(ws*ws, C) and v_bias (1, C): zero-padded border tokens then reduce exactly
+to the biases, as the reference pads before projecting, and take part as
+keys and values. `window_attention` launches the CUDA kernel for CUDA
+tensors and takes the plain PyTorch version only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import library
+
+HEAD_DIMS = (16, 32)
+MAX_TOKENS = 64          # ws * ws, one thread per query row of a window
+
+
+def partition(t: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, H, W, C) -> zero-padded windows (B, nW, ws*ws, C)."""
+    B, H, W, C = t.shape
+    ph, pw = (ws - H % ws) % ws, (ws - W % ws) % ws
+    t = F.pad(t, (0, 0, 0, pw, 0, ph))
+    Hp, Wp = H + ph, W + pw
+    t = t.reshape(B, Hp // ws, ws, Wp // ws, ws, C)
+    return t.permute(0, 1, 3, 2, 4, 5).reshape(B, -1, ws * ws, C)
+
+
+def biased_windows(qx, kx, vx, q_bias, k_bias, v_bias, ws: int):
+    """The partitioned streams with their biases added in the streams'
+    dtype, as stitchax adds them: three (B, nW, ws*ws, C) tensors."""
+    T = ws * ws
+    C = qx.shape[-1]
+    return (partition(qx, ws) + q_bias.reshape(1, 1, T, C),
+            partition(kx, ws) + k_bias.reshape(1, 1, T, C),
+            partition(vx, ws) + v_bias.reshape(1, 1, 1, C))
+
+
+def window_attention_plain(qx, kx, vx, q_bias, k_bias, v_bias, *, heads: int,
+                           ws: int) -> torch.Tensor:
+    """Pad, partition, add the biases (rounded to the streams' dtype), then
+    per window and head softmax(q k^T * d^-0.5) v in fp32, rounded once to
+    the streams' dtype, merged and cropped to (B, H, W, C)."""
+    B, H, W, C = qx.shape
+    T = ws * ws
+    d = C // heads
+    q, k, v = biased_windows(qx, kx, vx, q_bias, k_bias, v_bias, ws)
+
+    def split(t):
+        return t.float().reshape(B, -1, T, heads, d).transpose(2, 3)
+
+    qh, kh, vh = split(q), split(k), split(v)
+    attn = torch.softmax(qh @ kh.transpose(-1, -2) * d ** -0.5, dim=-1)
+    Hp, Wp = -(-H // ws) * ws, -(-W // ws) * ws
+    o = (attn @ vh).transpose(2, 3).reshape(B, Hp // ws, Wp // ws, ws, ws, C)
+    o = o.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C)
+    return o[:, :H, :W].to(qx.dtype)
+
+
+def _token_stride(t: torch.Tensor, name: str) -> int:
+    """Token stride of a (B, H, W, C) view whose tokens are evenly spaced
+    (e.g. one third of a fused qkv product); raises otherwise."""
+    B, H, W, C = t.shape
+    s = t.stride(2)
+    if t.stride(3) != 1 or t.stride(1) != W * s or t.stride(0) != H * W * s:
+        raise ValueError(f"window_attention: {name} must have channel stride"
+                         f" 1 and evenly spaced tokens, got strides "
+                         f"{t.stride()}")
+    return s
+
+
+def window_attention(qx, kx, vx, q_bias, k_bias, v_bias, *, heads: int,
+                     ws: int) -> torch.Tensor:
+    if qx.device.type == "cpu":
+        return window_attention_plain(qx, kx, vx, q_bias, k_bias, v_bias,
+                                      heads=heads, ws=ws)
+    B, H, W, C = qx.shape
+    T = ws * ws
+    if (kx.shape != qx.shape or vx.shape != qx.shape or C % heads
+            or C // heads not in HEAD_DIMS or not 0 < T <= MAX_TOKENS
+            or q_bias.shape != (T, C) or k_bias.shape != (T, C)
+            or v_bias.shape != (1, C)):
+        raise ValueError(
+            f"window_attention: unsupported shapes qx{tuple(qx.shape)} "
+            f"kx{tuple(kx.shape)} vx{tuple(vx.shape)} q_bias"
+            f"{tuple(q_bias.shape)} k_bias{tuple(k_bias.shape)} v_bias"
+            f"{tuple(v_bias.shape)} heads={heads} ws={ws}")
+    tensors = (qx, kx, vx, q_bias, k_bias, v_bias)
+    if any(t.dtype != qx.dtype for t in tensors):
+        raise TypeError("window_attention: streams and biases must share a "
+                        "dtype")
+    if any(t.device != qx.device or t.device.type != "cuda" for t in tensors):
+        raise ValueError("window_attention: tensors must share one CUDA "
+                         "device")
+    if q_bias.stride(1) != 1 or k_bias.stride(1) != 1 or v_bias.stride(1) != 1:
+        raise ValueError("window_attention: biases need channel stride 1")
+    qs, ks, vs = (_token_stride(t, n) for t, n in ((qx, "qx"), (kx, "kx"),
+                                                  (vx, "vx")))
+    out = torch.empty(B, H, W, C, device=qx.device, dtype=qx.dtype)
+    lib = library.load_library()
+    err = lib.stx_window_attention(
+        qx.data_ptr(), kx.data_ptr(), vx.data_ptr(), q_bias.data_ptr(),
+        k_bias.data_ptr(), v_bias.data_ptr(), out.data_ptr(), B, H, W, C,
+        heads, ws, qs, ks, vs, q_bias.stride(0), k_bias.stride(0),
+        library.dtype_code(qx.dtype), library.stream_of(qx))
+    library.check(err, "window_attention")
+    library.launches["window_attention"] += 1
+    return out

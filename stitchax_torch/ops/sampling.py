@@ -12,6 +12,11 @@ Port of stitchax/ops/sampling.py with its two bilinear semantics:
 Both gather the 2x2 block at the clamped start index and fold the bounds
 into the weights, as stitchax does; on the GPU the gather is a plain
 `torch.gather` (the TPU's 4-tap packed row-take is not carried over).
+
+`image_resize` is `jax.image.resize` (what stitchax's TransRef inpainter
+resizes with), which `F.interpolate` matches in neither mode: "bilinear"
+is a triangle filter that widens by the scale when it downsamples
+(antialiasing), "nearest" picks floor((i + 0.5) * in / out).
 """
 
 from __future__ import annotations
@@ -26,13 +31,16 @@ def _axis_weights(i0f: torch.Tensor, frac: torch.Tensor, n: int,
                   rule: str = "zeros"):
     start = i0f.clamp(0.0, float(n - 2))
     s = i0f - start
+    # weights are selected, not multiplied by the masks: jnp multiplies by
+    # a boolean mask as a select (NaN * False is 0), so a NaN coordinate
+    # samples zero in stitchax; for finite ones the two forms are equal
+    pick = lambda cond, w: torch.where(cond, w, torch.zeros_like(w))
     if rule == "interior":
-        ok = (s == 0.0).to(frac.dtype)
-        w0, w1 = (1.0 - frac) * ok, frac * ok
+        w0, w1 = pick(s == 0.0, 1.0 - frac), pick(s == 0.0, frac)
     else:
-        w0 = (1.0 - frac) * (s == 0.0) + frac * (s == -1.0)
-        w1 = frac * (s == 0.0) + (1.0 - frac) * (s == 1.0)
-    return start.long(), w0, w1
+        w0 = pick(s == 0.0, 1.0 - frac) + pick(s == -1.0, frac)
+        w1 = pick(s == 0.0, frac) + pick(s == 1.0, 1.0 - frac)
+    return start.nan_to_num(0.0).long(), w0, w1
 
 
 def bilinear_gather_b(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -136,3 +144,51 @@ def homography_warp_b(imgs: torch.Tensor, thetas: torch.Tensor,
     x = (x_s / t_s + 1.0) * W / 2.0
     y = (y_s / t_s + 1.0) * H / 2.0
     return bilinear_gather_b(imgs, x, y, rule="interior")
+
+
+def _jax_linear_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of jax.image.resize's "bilinear" along one
+    axis (jax._src.image.scale.compute_weight_mat with the triangle kernel
+    and antialias), computed in fp32 as jax computes them."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample_f = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=f32)[:, None])
+    w = np.maximum(f32(0.0), f32(1.0) - x / kernel_scale)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).T.astype(f32)
+
+
+def _jax_nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    f32 = np.float32
+    src = (np.arange(n_out, dtype=f32) + f32(0.5)) * f32(n_in) / f32(n_out)
+    return np.floor(src).astype(np.int64)
+
+
+def image_resize(img: torch.Tensor, out_h: int, out_w: int,
+                 method: str = "bilinear") -> torch.Tensor:
+    """jax.image.resize of (H, W, C) to (out_h, out_w, C); method
+    "bilinear" (antialiased when downsampling) or "nearest". An axis
+    whose size does not change is left as it is, as in jax."""
+    H, W, _ = img.shape
+    if method == "nearest":
+        if out_h != H:
+            img = img[torch.from_numpy(_jax_nearest_index(H, out_h))
+                      .to(img.device)]
+        if out_w != W:
+            img = img[:, torch.from_numpy(_jax_nearest_index(W, out_w))
+                      .to(img.device)]
+        return img
+    if method != "bilinear":
+        raise ValueError(f"image_resize: unsupported method {method!r}")
+    if out_h != H:
+        Ry = torch.from_numpy(_jax_linear_matrix(H, out_h)).to(img)
+        img = torch.einsum("oh,hwc->owc", Ry, img)
+    if out_w != W:
+        Rx = torch.from_numpy(_jax_linear_matrix(W, out_w)).to(img)
+        img = torch.einsum("pw,owc->opc", Rx, img)
+    return img

@@ -3,8 +3,8 @@
 `tps_fit` solves the (N+3) x (N+3) system in fp32 with a small Tikhonov
 term; invalid control points get identity rows and exactly zero weight.
 Where the system is singular (fewer valid points than the affine part
-needs) the map is the identity, chosen on the device without a host sync;
-stitchax returns NaN there.
+needs) every weight is NaN, as stitchax's solve gives, chosen on the device
+without a host sync.
 `tps_backward_warp` folds validity into the weights and evaluates the map
 at every canvas pixel with the CUDA kernel K2 (`ops.kernels.tps_grid`).
 """
@@ -44,11 +44,8 @@ def tps_fit(ctrl: torch.Tensor, target: torch.Tensor,
     rhs[:N] = target * v[:, None]
     w, info = torch.linalg.solve_ex(L, rhs)
     # singular L: too few valid points to fix the affine part (e.g. the
-    # occlusion filter dropped them all). stitchax's solve returns NaN here;
-    # the port takes the identity map, i.e. no TPS warp.
-    ident = torch.zeros_like(rhs)
-    ident[N + 1, 0] = ident[N + 2, 1] = 1.0
-    w = torch.where(info != 0, ident, w)
+    # occlusion filter dropped them all); stitchax's solve gives NaN here
+    w = torch.where(info != 0, torch.full_like(w, float("nan")), w)
     return w[:N], w[N:]
 
 

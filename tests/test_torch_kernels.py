@@ -1,6 +1,10 @@
-"""The port's three kernels: each plain PyTorch version against the JAX
+"""The port's four kernels: each plain PyTorch version against the JAX
 function it replaces, on the same numpy inputs (CPU). The CUDA kernels
 against their plain versions are in test_torch_kernels_gpu.py."""
+
+import importlib.util
+import os
+import sys
 
 import numpy as np
 import jax.numpy as jnp
@@ -12,10 +16,12 @@ from stitchax.ops.pallas.gsa_attention import (gsa_attention_pallas,
                                                gsa_attention_ref)
 from stitchax.ops.pallas.tps_kernel import (tps_eval_grid_pallas,
                                             tps_eval_grid_ref)
+from stitchax.ops.window_attention import window_attention_split
 from stitchax_torch.ops.kernels import cost_lookup as tcl
 from stitchax_torch.ops.kernels import gsa_attention as tgsa
 from stitchax_torch.ops.kernels import library
 from stitchax_torch.ops.kernels import tps_grid as ttps
+from stitchax_torch.ops.kernels import window_attention as twa
 
 T = torch.from_numpy
 
@@ -145,3 +151,111 @@ def test_cost_lookup_integer_coords_and_edges(rng):
         1, 4, 8, 2).astype(np.float32)
     ref, got = _lookup_both(cm, coords, jnp.bfloat16, torch.bfloat16)
     np.testing.assert_array_equal(got, ref)
+
+
+# ------------------------------- K4 ------------------------------------------
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+WS = 7
+
+
+def _window_inputs(rng, B, H, W, C, fused=False):
+    """Streams (B, H, W, C) and biases; with `fused`, the streams are the
+    three strided thirds of one (B, H, W, 3C) tensor, as the port's
+    LocallyGroupedAttn splits its qkv product."""
+    T_ = WS * WS
+    if fused:
+        qkv = T(rng.standard_normal((B, H, W, 3 * C)).astype(np.float32))
+        qx, kx, vx = qkv.split(C, -1)
+    else:
+        qx, kx, vx = (T(rng.standard_normal((B, H, W, C)).astype(np.float32))
+                      for _ in range(3))
+    qb, kb = (T((rng.standard_normal((T_, C)) * 0.3).astype(np.float32))
+              for _ in range(2))
+    vb = T((rng.standard_normal((1, C)) * 0.3).astype(np.float32))
+    return qx, kx, vx, qb, kb, vb
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("H,W,heads", [(14, 21, 4), (16, 20, 8), (9, 7, 2)])
+def test_window_plain_matches_jax(rng, H, W, heads, d, fused):
+    """Ragged sizes (padded edge windows whose bias-valued tokens take part
+    as keys and values), head dims 16 and 32, contiguous and strided
+    streams. fp32 on both sides: summation order only."""
+    args = _window_inputs(rng, 2, H, W, heads * d, fused)
+    if fused:
+        assert args[0].stride(2) == 3 * heads * d
+    ref = np.asarray(window_attention_split(
+        *(jnp.asarray(a.numpy()) for a in args), heads=heads, ws=WS))
+    got = twa.window_attention_plain(*args, heads=heads, ws=WS).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+
+
+def test_window_padding_is_not_masking(rng):
+    """A padded position is a key and a value (its q/k/v are the biases):
+    masking it out computes another function, which the reference tells
+    apart at a ragged size."""
+    args = _window_inputs(rng, 1, 9, 10, 32)
+    got = twa.window_attention_plain(*args, heads=2, ws=WS)
+    # the same windows with the pad tokens masked out of the softmax
+    q, k, v = twa.biased_windows(*args, WS)
+    keep = twa.partition(torch.ones(1, 9, 10, 1), WS)[..., 0] > 0  # (1,nW,T)
+    qh, kh, vh = (t.reshape(1, -1, 49, 2, 16).transpose(2, 3)
+                  for t in (q, k, v))
+    logits = qh @ kh.transpose(-1, -2) * 16 ** -0.5
+    logits = logits.masked_fill(~keep[:, :, None, None, :], float("-inf"))
+    o = (torch.softmax(logits, -1) @ vh).transpose(2, 3).reshape(
+        1, 2, 2, WS, WS, 32).permute(0, 1, 3, 2, 4, 5).reshape(1, 14, 14, 32)
+    masked = o[:, :9, :10]
+    ref = np.asarray(window_attention_split(
+        *(jnp.asarray(a.numpy()) for a in args), heads=2, ws=WS))
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5)
+    assert np.abs(masked.numpy() - ref).max() > 1e-2
+
+
+@pytest.fixture
+def exp_window_attn(monkeypatch):
+    """tools/exp_window_attn.py, the retired TPU kernel, imported on the
+    CPU: STITCHAX_PLATFORM=cpu keeps its `setup_cli_jax` from turning on the
+    persistent compile cache, and the sys.path entry it adds is undone."""
+    monkeypatch.setenv("STITCHAX_PLATFORM", "cpu")
+    path = list(sys.path)
+    spec = importlib.util.spec_from_file_location(
+        "exp_window_attn", os.path.join(REPO, "tools", "exp_window_attn.py"))
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path[:] = path
+    return mod
+
+
+def test_window_plain_matches_pallas_interpret(rng, exp_window_attn):
+    args = _window_inputs(rng, 1, 9, 10, 32)
+    ref = np.asarray(exp_window_attn.window_attention_pallas(
+        *(jnp.asarray(a.numpy()) for a in args), heads=2, ws=WS,
+        interpret=True))
+    got = twa.window_attention_plain(*args, heads=2, ws=WS).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+
+
+def test_window_plain_bf16_rounds_biased_streams_once(rng):
+    """bf16: the biases are added in bf16 as stitchax adds them, then the
+    softmax and sums run in fp32 with one rounding of the output."""
+    args = [a.bfloat16() for a in _window_inputs(rng, 1, 8, 9, 32)]
+    got = twa.window_attention_plain(*args, heads=2, ws=WS)
+    assert got.dtype == torch.bfloat16
+    q, k, v = twa.biased_windows(*args, WS)
+    assert q.dtype == torch.bfloat16
+    ref = twa.window_attention_plain(*(a.float() for a in args), heads=2,
+                                     ws=WS)
+    # fp32 inputs skip the bias rounding: outputs <~ 4, a few bf16 ulps
+    np.testing.assert_allclose(got.float().numpy(), ref.numpy(), atol=5e-2)
+
+
+def test_window_wrapper_uses_plain_on_cpu(rng):
+    args = _window_inputs(rng, 1, 8, 8, 32, fused=True)
+    before = dict(library.launches)
+    out = twa.window_attention(*args, heads=2, ws=WS)
+    assert out.shape == (1, 8, 8, 32) and library.launches == before

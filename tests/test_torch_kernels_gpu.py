@@ -17,6 +17,7 @@ from stitchax_torch.ops.kernels import cost_lookup as tcl
 from stitchax_torch.ops.kernels import gsa_attention as tgsa
 from stitchax_torch.ops.kernels import library
 from stitchax_torch.ops.kernels import tps_grid as ttps
+from stitchax_torch.ops.kernels import window_attention as twa
 from stitchax_torch.utils.precision import fp32_exact
 
 GSA_CASES = [(2, 100, 16, 64, 4),    # d = 16, ragged N
@@ -80,5 +81,46 @@ def test_wrappers_count_launches(cuda):
     tgsa.gsa_attention(x, x, x, heads=2)
     tcl.cost_lookup(torch.randn(4, 8, 8, device=cuda),
                     torch.zeros(4, 2, device=cuda))
+    b = torch.zeros(49, 32, device=cuda)
+    twa.window_attention(x.view(1, 4, 4, 32), x.view(1, 4, 4, 32),
+                         x.view(1, 4, 4, 32), b, b, b[:1], heads=2, ws=7)
     assert library.launches == {"gsa_attention": 1, "cost_lookup": 1,
-                                "tps_grid": 0}
+                                "tps_grid": 0, "window_attention": 1}
+
+
+# K4 shapes (B, H, W, C, heads, fused): the main path's (stage 1 and 2 of
+# the twins encoders, whose LSA blocks split one fused qkv product into
+# strided views with broadcast biases; the cost perceiver's vertical blocks
+# on 2 directions x 8 latents), and ragged ones
+WINDOW_CASES = [(2, 128, 128, 128, 4, True), (2, 64, 64, 256, 8, True),
+                (16, 64, 64, 128, 8, False), (1, 9, 10, 32, 2, False),
+                (3, 14, 21, 64, 4, True), (2, 16, 20, 256, 8, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,heads,fused", WINDOW_CASES)
+def test_window_kernel_matches_plain(cuda, dtype, B, H, W, C, heads, fused):
+    g = torch.Generator().manual_seed(0)
+    if fused:
+        qkv = torch.randn(B, H, W, 3 * C, generator=g).to(cuda, dtype)
+        qx, kx, vx = qkv.split(C, -1)
+        bias = (torch.randn(3 * C, generator=g) * .3).to(cuda, dtype)
+        qb, kb, vb = bias.split(C)
+        qb, kb, vb = qb.expand(49, C), kb.expand(49, C), vb[None]
+    else:
+        qx, kx, vx = (torch.randn(B, H, W, C, generator=g).to(cuda, dtype)
+                      for _ in range(3))
+        qb, kb = ((torch.randn(49, C, generator=g) * .3).to(cuda, dtype)
+                  for _ in range(2))
+        vb = (torch.randn(1, C, generator=g) * .3).to(cuda, dtype)
+    args = (qx, kx, vx, qb, kb, vb)
+    got = twa.window_attention(*args, heads=heads, ws=7)
+    want = twa.window_attention_plain(*args, heads=heads, ws=7)
+    # fp32: summation order only. bf16: both round the biased streams to
+    # bf16, take the softmax and sums in fp32 and round once; one bf16 ulp
+    # (8 significant bits) of max |out|
+    top = want.float().abs().max().item()
+    tol = (2e-5 if dtype == torch.float32
+           else 2.0 ** (math.floor(math.log2(top)) - 7))
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
