@@ -18,12 +18,19 @@ Phases, each printing one JSON line before the next begins:
                          also times the inpainter and the composition
   kernels                each kernel against its plain PyTorch version at
                          the shapes the stitches gave it: max |diff|, kernel
-                         / plain / library ms, and the least time the card
-                         could take (bound_ms)
+                         / plain / library ms by CUDA events, the kernel's
+                         and the library call's device time per call from
+                         the profiler, and the least time the card could
+                         take (bound_ms)
   stitch_vs_cpu          the fast_cv_g8 stitch in fp32 on the card and on
                          the CPU, compared
   stitch_vs_cpu_default  the same for the default configuration, down to
                          the composition and the learned masks
+  stitch_vs_stitchax     the fast_cv_g8 stitch of demo_data/demo1 and demo2
+                         in fp32 on the card against stitchax's own outputs
+                         (its jitted Stitcher on the CPU), committed in
+                         tests/torch_reference/demo_stitchax_fp32.npz with
+                         the decoded input images
 
 Then the kernel table (one JSON object), the nvidia-smi line, and the final
 `{"ok": true, "device": ...}` line. Any failed phase exits non-zero without
@@ -54,6 +61,8 @@ CKPT = os.path.join(REPO, WEIGHTS)
 TRANSREF_WEIGHTS = "results/transref_ckpt_r05_bf16.msgpack"
 TRANSREF_CKPT = os.path.join(REPO, TRANSREF_WEIGHTS)
 FAST, DEFAULT = "fast_cv_g8", "all_img1_with_inpaint_g12_transRef"
+REFERENCE = "tests/torch_reference/demo_stitchax_fp32.npz"
+DEMO_PAIRS = ("demo1", "demo2")
 SEED = 0
 PAIR_HW = (384, 448)            # the demo pair's size
 
@@ -67,6 +76,8 @@ PEAK = {"bf16": 989e12, "fp32": 67e12}
 # softmax and the sums in fp32 and differ only in summation order before
 # the one rounding to bf16.
 TOL = {
+    # K1 in fp32 (exact fp32 on the CUDA cores): summation order only
+    "gsa_attention_fp32": 2e-5,
     # K4 in fp32: summation order only
     "window_attention_fp32": 2e-5,
     # every product and sum rounded on its own in both: bit-equal
@@ -98,6 +109,25 @@ STITCH_DEFAULT_TOL = {
 }
 
 
+# the fast_cv_g8 stitch of demo1 and demo2 in fp32 on the card (TF32 off)
+# against stitchax's outputs (REFERENCE), the worse pair of the two: about
+# 10x of what an H100 read (PERF.md section 2), and the equalities it read
+# kept as equalities; canvas images compared as stitchax's exact-RGB pack
+# rounds them to uint8
+STITCHAX_TOL = {
+    "H_max_abs": 1e-3,               # homography entries, read 6.1e-5
+    "flow_max_px": 5e-3,             # native-res forward flow, read 8.4e-4
+    "canvas_box_px": 0.0,            # canvas bounds, read equal
+    "control_valid_moved": 0,        # control points valid on one side only
+    "control_dst_max_px": 5e-3,      # their targets (flow samples), 4.3e-4
+    "mask1_moved_px": 0,             # mask1 values that differ, read 0
+    "warp2_psnr_db": 70.0,           # read 81.71 dB
+    "warp2_px_off_gt1": 0,           # uint8 values off by more than 1
+    "ave_fusion_psnr_db": 70.0,      # read 81.89 dB
+    "ave_fusion_px_off_gt1": 0,
+}
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -125,6 +155,33 @@ def cuda_time(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20):
+    """Mean device time of one fn() call in ms, from the profiler: the sum
+    of the device activities (kernels, copies, sets) it recorded over
+    `iters` calls. Unlike `cuda_time`, host gaps between launches do not
+    count. None where the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    return sum(e.time_range.end - e.time_range.start
+               for e in dev) / 1e3 / iters
+
+
+def _add(total, x, n=1):
+    """Sum per-call device times over calls; None (not measured) spreads."""
+    return None if total is None or x is None else total + n * x
 
 
 def bf16_ulp(x: float) -> float:
@@ -235,6 +292,7 @@ def window_rows(g, launches):
     ws, T = WINDOW_WS, WINDOW_WS * WINDOW_WS
     detail = []
     err = ms = plain = lib = bnd = 0.0
+    dev_ms = lib_dev_ms = 0.0
     bound_share = {"bytes": 0.0, "operations": 0.0}
     for B, H, W, C, heads, fused, calls in WINDOW_CALLS:
         for dtype in (torch.float32, torch.bfloat16):
@@ -260,13 +318,20 @@ def window_rows(g, launches):
                     *args, heads=heads, ws=ws), iters=5)
                 t_l = cuda_time(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh))
+                d_k = device_ms(lambda: wa.window_attention(
+                    *args, heads=heads, ws=ws))
+                d_l = device_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh))
                 n_win = q.shape[0] * q.shape[1]
                 # q, k, v read once, out written once (bf16), biases once
                 nbytes = 2 * (4 * B * H * W * C + 2 * T * C + C)
                 b, by = bound_ms(nbytes, 4.0 * n_win * T * T * C,
                                  PEAK["bf16"])
-                entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                entry.update(ms=t_k, device_ms=d_k, plain_ms=t_p,
+                             library_ms=t_l, library_device_ms=d_l,
                              bound_ms=b, bound_by=by)
+                dev_ms = _add(dev_ms, d_k, calls)
+                lib_dev_ms = _add(lib_dev_ms, d_l, calls)
                 ms += calls * t_k
                 plain += calls * t_p
                 lib += calls * t_l
@@ -278,9 +343,10 @@ def window_rows(g, launches):
            "source": "stitchax_torch/csrc/window_attention.cu",
            "replaces": "tools/exp_window_attn.py:96",
            "launches": launches["window_attention"], "max_abs_err": err,
-           "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+           "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+           "bound_ms": bnd,
            "bound_by": max(bound_share, key=bound_share.get),
-           "library_ms": lib}
+           "library_ms": lib, "library_device_ms": lib_dev_ms}
     return row, detail
 
 
@@ -303,6 +369,7 @@ def kernel_rows(tps_inputs, launches):
 
     # K1
     err = ms = plain = lib = bnd = 0.0
+    dev_ms = lib_dev_ms = 0.0
     bound_share = {"bytes": 0.0, "operations": 0.0}
     for B, N, C, heads, calls in GSA_CALLS:
         q = torch.randn(B, N, C, device=dev, generator=g).bfloat16()
@@ -321,13 +388,30 @@ def kernel_rows(tps_inputs, launches):
         t_p = cuda_time(lambda: gsa_attention.gsa_attention_plain(
             q, k, v, heads=heads), iters=5)
         t_l = cuda_time(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        d_k = device_ms(lambda: gsa_attention.gsa_attention(q, k, v,
+                                                            heads=heads))
+        d_l = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
         nbytes = 2 * (2 * B * N * C + 2 * B * GSA_KEYS * C)
         b, by = bound_ms(nbytes, 4.0 * B * N * GSA_KEYS * C, PEAK["bf16"])
+        # the fp32 path (the card-vs-CPU stitches take it) against the same
+        # plain version
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        e32 = (gsa_attention.gsa_attention(q32, k32, v32, heads=heads)
+               - gsa_attention.gsa_attention_plain(q32, k32, v32,
+                                                   heads=heads)
+               ).abs().max().item()
         detail.append({"kernel": "gsa_attention", "B": B, "N": N, "C": C,
-                       "heads": heads, "calls": calls, "max_abs_err": e,
-                       "tol": tol, "ms": t_k, "plain_ms": t_p,
-                       "library_ms": t_l, "bound_ms": b, "bound_by": by})
+                       "heads": heads, "calls": calls, "dtype": "bfloat16",
+                       "max_abs_err": e, "tol": tol, "ms": t_k,
+                       "device_ms": d_k, "plain_ms": t_p, "library_ms": t_l,
+                       "library_device_ms": d_l, "bound_ms": b,
+                       "bound_by": by})
+        detail.append({"kernel": "gsa_attention", "B": B, "N": N, "C": C,
+                       "heads": heads, "calls": calls, "dtype": "float32",
+                       "max_abs_err": e32, "tol": TOL["gsa_attention_fp32"]})
         err = max(err, e)
+        dev_ms = _add(dev_ms, d_k, calls)
+        lib_dev_ms = _add(lib_dev_ms, d_l, calls)
         ms += calls * t_k
         plain += calls * t_p
         lib += calls * t_l
@@ -337,22 +421,29 @@ def kernel_rows(tps_inputs, launches):
                  "source": "stitchax_torch/csrc/gsa_attention.cu",
                  "replaces": "stitchax/ops/pallas/gsa_attention.py:51",
                  "launches": launches["gsa_attention"],
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "bound_ms": bnd,
+                 "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                 "plain_ms": plain, "bound_ms": bnd,
                  "bound_by": max(bound_share, key=bound_share.get),
-                 "library_ms": lib})
+                 "library_ms": lib, "library_device_ms": lib_dev_ms})
 
-    # K3
+    # K3, with the main path's bf16 coordinates (timed) and fp32 ones
     cm = torch.randn(COST_P, COST_HW, COST_HW, device=dev,
                      generator=g).bfloat16()
     coords = (torch.rand(COST_P, 2, device=dev, generator=g)
               * (COST_HW + 12) - 6)
-    got = cost_lookup.cost_lookup(cm, coords, COST_R)
-    want = cost_lookup.cost_lookup_plain(cm, coords, COST_R)
-    torch.cuda.synchronize()
-    e = (got - want).abs().max().item()
-    t_k = cuda_time(lambda: cost_lookup.cost_lookup(cm, coords, COST_R))
-    t_p = cuda_time(lambda: cost_lookup.cost_lookup_plain(cm, coords, COST_R))
+    coords_bf16 = coords.bfloat16()
+    e = 0.0
+    for c in (coords_bf16, coords):
+        got = cost_lookup.cost_lookup(cm, c, COST_R)
+        want = cost_lookup.cost_lookup_plain(cm, c, COST_R)
+        torch.cuda.synchronize()
+        e = max(e, (got - want).abs().max().item())
+    coords = coords_bf16.float()           # the same points, for grid_sample
+    t_k = cuda_time(lambda: cost_lookup.cost_lookup(cm, coords_bf16, COST_R))
+    d_k = device_ms(lambda: cost_lookup.cost_lookup(cm, coords_bf16, COST_R))
+    t_k32 = cuda_time(lambda: cost_lookup.cost_lookup(cm, coords, COST_R))
+    t_p = cuda_time(lambda: cost_lookup.cost_lookup_plain(cm, coords_bf16,
+                                                          COST_R))
     # library yardstick: F.grid_sample (bilinear, zero padding,
     # align_corners) of each pixel's own map at its 81 taps, x offset outer.
     # In fp32: grid_sample takes the grid in the maps' dtype, and a bf16 grid
@@ -370,6 +461,7 @@ def kernel_rows(tps_inputs, launches):
 
     lib_diff = (library_call().reshape(COST_P, -1) - want).abs().max().item()
     t_l = cuda_time(library_call)
+    d_l = device_ms(library_call)
     # bytes this data needs: the in-bounds (2r+2)^2 patch of each map
     steps = torch.arange(2 * COST_R + 2, device=dev)
     f0 = torch.floor(coords).long() - COST_R
@@ -377,22 +469,27 @@ def kernel_rows(tps_inputs, launches):
             ).sum(1) for i in (0, 1)]
     touched = float((inb[0] * inb[1]).sum().item())
     win2 = (2 * COST_R + 1) ** 2
-    nbytes = touched * 2 + COST_P * 2 * 4 + COST_P * win2 * 4
+    nbytes = touched * 2 + COST_P * 2 * 2 + COST_P * win2 * 4
     nflops = COST_P * (3 * (2 * COST_R + 1) * (2 * COST_R + 2) + 3 * win2)
     b, by = bound_ms(nbytes, nflops, PEAK["fp32"])
     detail.append({"kernel": "cost_lookup", "P": COST_P, "H2": COST_HW,
                    "W2": COST_HW, "r": COST_R, "calls": DECODER_ITERS,
-                   "max_abs_err": e, "tol": TOL["cost_lookup"], "ms": t_k,
-                   "plain_ms": t_p, "library_ms": t_l,
+                   "coords": "bfloat16", "max_abs_err": e,
+                   "tol": TOL["cost_lookup"], "ms": t_k, "device_ms": d_k,
+                   "ms_fp32_coords": t_k32, "plain_ms": t_p,
+                   "library_ms": t_l, "library_device_ms": d_l,
                    "library_max_abs_diff": lib_diff, "bound_ms": b,
                    "bound_by": by})
     rows.append({"name": "cost_lookup", "route": "cuda",
                  "source": "stitchax_torch/csrc/cost_lookup.cu",
                  "replaces": "stitchax/ops/pallas/cost_lookup.py:121",
                  "launches": launches["cost_lookup"], "max_abs_err": e,
-                 "ms": DECODER_ITERS * t_k, "plain_ms": DECODER_ITERS * t_p,
+                 "ms": DECODER_ITERS * t_k,
+                 "device_ms": _add(0.0, d_k, DECODER_ITERS),
+                 "plain_ms": DECODER_ITERS * t_p,
                  "bound_ms": DECODER_ITERS * b, "bound_by": by,
-                 "library_ms": DECODER_ITERS * t_l})
+                 "library_ms": DECODER_ITERS * t_l,
+                 "library_device_ms": _add(0.0, d_l, DECODER_ITERS)})
 
     # K2, at each configuration's canvas and control points
     for config, (ctrl, kw, aw, out_h, out_w) in tps_inputs.items():
@@ -405,19 +502,23 @@ def kernel_rows(tps_inputs, launches):
                                                   out_w))
         t_p = cuda_time(lambda: tps_grid.tps_grid_plain(ctrl, kw, aw, out_h,
                                                         out_w), iters=5)
+        d_k = device_ms(lambda: tps_grid.tps_grid(ctrl, kw, aw, out_h,
+                                                  out_w))
         # per (pixel, center): 2 sub + 3 for d2 + log + 2 mul + 2 fma ~ 12
         b, by = bound_ms(N * 16 + 24 + out_h * out_w * 8,
                          12.0 * out_h * out_w * N, PEAK["fp32"])
         detail.append({"kernel": "tps_grid", "config": config, "N": N,
                        "out_h": out_h, "out_w": out_w, "calls": 1,
                        "max_abs_err": e, "tol": TOL["tps_grid"], "ms": t_k,
-                       "plain_ms": t_p, "bound_ms": b, "bound_by": by})
+                       "device_ms": d_k, "plain_ms": t_p, "bound_ms": b,
+                       "bound_by": by})
     rows.append({"name": "tps_grid", "route": "cuda",
                  "source": "stitchax_torch/csrc/tps_grid.cu",
                  "replaces": "stitchax/ops/pallas/tps_kernel.py:53",
                  "launches": launches["tps_grid"], "max_abs_err": e,
-                 "ms": t_k, "plain_ms": t_p, "bound_ms": b, "bound_by": by,
-                 "library_ms": None})
+                 "ms": t_k, "device_ms": d_k, "plain_ms": t_p,
+                 "bound_ms": b, "bound_by": by, "library_ms": None,
+                 "library_device_ms": None})
 
     # K4
     row, more = window_rows(g, launches)
@@ -550,8 +651,7 @@ def _check(res, tol, phase) -> None:
     res["ok"] = not misses
     emit(res)
     if misses:
-        raise RuntimeError(f"{phase}: card vs CPU outside tolerance: "
-                           f"{misses}")
+        raise RuntimeError(f"{phase}: outside tolerance: {misses}")
 
 
 def stitch_vs_cpu_default_phase(img1, img2):
@@ -599,6 +699,68 @@ def stitch_vs_cpu_phase(img1, img2):
         _psnr(g["new_blend_image"], c["new_blend_image"])
         if g["true_hw"].tolist() == c["true_hw"].tolist() else float("-inf"))
     _check(res, STITCH_TOL, "stitch_vs_cpu")
+
+
+def _u8(x):
+    return np.rint(np.clip(x, 0, 255)).astype(np.uint8)
+
+
+def stitch_vs_stitchax_phase():
+    """The port's fast_cv_g8 stitch of demo_data/demo1 and demo2 in fp32 on
+    the card against stitchax's own outputs for the same pairs (its jitted
+    Stitcher, fp32 nets, on the CPU; REFERENCE, which also holds the decoded
+    input images)."""
+    import torch
+
+    from stitchax_torch.run.stitcher import Stitcher
+    from stitchax_torch.utils.precision import fp32_exact
+
+    path = os.path.join(REPO, REFERENCE)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"{path} is missing: stitchax's outputs for "
+                                "the demo pairs")
+    fp32_exact()
+    st = Stitcher(build_models(torch.float32, "cuda", FAST), device="cuda",
+                  config=FAST)
+    worst, pairs = {}, {}
+    with np.load(path) as data:
+        for name in DEMO_PAIRS:
+            ref = {k.split("/", 1)[1]: data[k] for k in data.files
+                   if k.startswith(name + "/")}
+            out = st.stitch(ref["img1"].astype(np.float32),
+                            ref["img2"].astype(np.float32))
+            check_finite(out)
+            th, tw = ref["warp2"].shape[:2]
+            if (out["canvas_hw"].tolist() != ref["canvas_hw"].tolist()
+                    or out["true_hw"].tolist() != [th, tw]):
+                raise RuntimeError(f"{name}: canvas {out['canvas_hw']} / "
+                                   f"{out['true_hw']}, stitchax "
+                                   f"{ref['canvas_hw']} / {[th, tw]}")
+            r = {"H_max_abs": float(np.abs(out["H"] - ref["H"]).max()),
+                 "flow_max_px": float(np.abs(out["flow"]
+                                             - ref["flow"]).max()),
+                 "canvas_box_px": float(np.abs(out["canvas_box"]
+                                               - ref["canvas_box"]).max()),
+                 "control_valid_moved": int((out["control_valid"]
+                                             != ref["control_valid"]).sum()),
+                 "control_dst_max_px": float(np.abs(
+                     out["control_dst"] - ref["control_dst"]).max()),
+                 "mask1_moved_px": int((out["mask1"]
+                                        != ref["mask1"][:th, :tw]).sum())}
+            for key, ours in (("warp2", "output2"),
+                              ("ave_fusion", "new_blend_image")):
+                a = _u8(out[ours])
+                d = np.abs(a.astype(int) - ref[key].astype(int))
+                r[f"{key}_psnr_db"] = _psnr(a, ref[key])
+                r[f"{key}_max_level"] = int(d.max())
+                r[f"{key}_px_off_gt1"] = int((d > 1).sum())
+            pairs[name] = r
+            for k, v in r.items():
+                worse = min if k.endswith("_db") else max
+                worst[k] = worse(worst.get(k, v), v)
+    res = {"phase": "stitch_vs_stitchax", "config": FAST, "dtype": "float32",
+           "reference": REFERENCE, "pairs": pairs, **worst}
+    _check(res, STITCHAX_TOL, "stitch_vs_stitchax")
 
 
 def _busy_us(intervals) -> float:
@@ -689,6 +851,7 @@ def main() -> int:
 
     stitch_vs_cpu_phase(img1, img2)
     stitch_vs_cpu_default_phase(img1, img2)
+    stitch_vs_stitchax_phase()
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -48,6 +48,20 @@ def predict_homography_matrix(homo_offsets: torch.Tensor, img_h: int,
     return dlt_solve(src / scale_div, (src + motion) / scale_div)
 
 
+def canvas_box(H: torch.Tensor, img_h: int, img_w: int) -> torch.Tensor:
+    """(B, 4) canvas bounds (width_min, height_min, width_max, height_max)
+    of each pair, from its H^-1-projected full-resolution 64x64 mesh."""
+    B = H.shape[0]
+    mesh = get_rigid_mesh(img_h, img_w, 63, 63, device=H.device,
+                          dtype=H.dtype)
+    mesh_p = h2mesh(H, mesh[None].expand(B, -1, -1, -1))
+    width_max = torch.trunc(torch.clamp(mesh_p[..., 0].amax((1, 2)), min=img_w))
+    width_min = torch.trunc(torch.clamp(mesh_p[..., 0].amin((1, 2)), max=0.0))
+    height_max = torch.trunc(torch.clamp(mesh_p[..., 1].amax((1, 2)), min=img_h))
+    height_min = torch.trunc(torch.clamp(mesh_p[..., 1].amin((1, 2)), max=0.0))
+    return torch.stack([width_min, height_min, width_max, height_max], -1)
+
+
 def stitch_model_step(homo_fn: Callable, flow_fn: Callable,
                       input1: torch.Tensor, input2: torch.Tensor,
                       cfg: AlignConfig,
@@ -84,18 +98,8 @@ def stitch_model_step(homo_fn: Callable, flow_fn: Callable,
     src = _corners(img_h, img_w, input1)[None].expand(B, -1, -1)
     H = dlt_solve(src, src + motion)
 
-    # canvas bounds from the H^-1-projected full-res mesh (per pair)
-    mesh = get_rigid_mesh(img_h, img_w, 63, 63, device=input1.device,
-                          dtype=input1.dtype)
-    mesh_p = h2mesh(H, mesh[None].expand(B, -1, -1, -1))
-    width_max = torch.trunc(torch.clamp(mesh_p[..., 0].amax((1, 2)), min=img_w))
-    width_min = torch.trunc(torch.clamp(mesh_p[..., 0].amin((1, 2)), max=0.0))
-    height_max = torch.trunc(torch.clamp(mesh_p[..., 1].amax((1, 2)), min=img_h))
-    height_min = torch.trunc(torch.clamp(mesh_p[..., 1].amin((1, 2)), max=0.0))
-
     out = dict(H=H, flow=flow, warp2_512=warp2_512, in1_512=in1,
-               canvas_box=torch.stack([width_min, height_min, width_max,
-                                       height_max], -1))
+               canvas_box=canvas_box(H, img_h, img_w))
     if cfg.use_fb_consistency_mask:
         if back_preds is None:
             back_preds, _ = flow_fn(warp2_512, in1)

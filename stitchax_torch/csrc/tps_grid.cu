@@ -63,6 +63,8 @@ tps_grid_kernel(const float* __restrict__ ctrl, const float* __restrict__ kw,
   out[2 * idx + 1] = kernel_scale * gy + affine_scale * (aw[1] + px * aw[3] + py * aw[5]);
 }
 
+constexpr int kMaxCenters = 8192;
+
 }  // namespace
 
 // ctrl (N, 2), kernel_w (N, 2), affine_w (3, 2), out (H, W, 2): fp32,
@@ -71,11 +73,15 @@ extern "C" int stx_tps_grid(const void* ctrl, const void* kernel_w,
                             const void* affine_w, void* out, int N, int H,
                             int W, int kornia, float kernel_scale,
                             float affine_scale, void* stream) {
-  if (N <= 0 || N > 8192 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || N > kMaxCenters || H <= 0 || W <= 0)
+    return (int)cudaErrorInvalidValue;
+  // above 48 KiB (N > 3072) the dynamic shared memory needs the attribute;
+  // it is set once, for the most centers the kernel takes
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      tps_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      4 * kMaxCenters * (int)sizeof(float));
+  if (attr != cudaSuccess) return (int)attr;
   const size_t smem = 4 * (size_t)N * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      tps_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const long long total = (long long)H * W;
   const int blocks = (int)((total + kThreads - 1) / kThreads);
   tps_grid_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -12,6 +12,8 @@ import torch
 
 from . import library
 
+MAX_RADIUS = 7
+
 
 def cost_lookup_plain(cost_maps: torch.Tensor, coords: torch.Tensor,
                       r: int = 4) -> torch.Tensor:
@@ -51,19 +53,25 @@ def cost_lookup(cost_maps: torch.Tensor, coords: torch.Tensor,
                 r: int = 4) -> torch.Tensor:
     if cost_maps.device.type == "cpu":
         return cost_lookup_plain(cost_maps, coords, r)
-    coords = coords.float().contiguous()
+    # the kernel reads fp32 or bf16 coordinates as they are (widened
+    # exactly, as .float() does); other dtypes are converted here
+    if coords.dtype not in (torch.float32, torch.bfloat16):
+        coords = coords.float()
     library.require_cuda("cost_lookup", cost_maps, coords)
     P, H2, W2 = cost_maps.shape
     if coords.shape != (P, 2):
         raise ValueError(f"cost_lookup: coords {tuple(coords.shape)} for "
                          f"{P} cost maps")
+    if not 1 <= r <= MAX_RADIUS:
+        raise ValueError(f"cost_lookup: radius {r} outside 1..{MAX_RADIUS}")
     win = 2 * r + 1
     out = torch.empty((P, win * win), device=cost_maps.device,
                       dtype=torch.float32)
     lib = library.load_library()
     err = lib.stx_cost_lookup(
         cost_maps.data_ptr(), coords.data_ptr(), out.data_ptr(), P, H2, W2, r,
-        library.dtype_code(cost_maps.dtype), library.stream_of(cost_maps))
+        library.dtype_code(cost_maps.dtype), library.dtype_code(coords.dtype),
+        library.stream_of(cost_maps))
     library.check(err, "cost_lookup")
     library.launches["cost_lookup"] += 1
     return out

@@ -2,8 +2,11 @@
 
 Port of `gsa_attention_pallas` (stitchax/ops/pallas/gsa_attention.py:51).
 `gsa_attention` launches the CUDA kernel for CUDA tensors and takes the plain
-PyTorch version only for CPU tensors. Inference only: when training is
-ported this gets a `torch.autograd.Function` with a backward kernel.
+PyTorch version only for CPU tensors. bf16 runs on the tensor cores with P
+rounded to bf16 for the P V product (within one bf16 ulp of max |out| of
+the plain version); fp32 runs exactly in fp32 on the CUDA cores. Inference
+only: when training is ported this gets a `torch.autograd.Function` with a
+backward kernel.
 """
 
 from __future__ import annotations

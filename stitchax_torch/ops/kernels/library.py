@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 All sources in `stitchax_torch/csrc/*.cu` have a plain `extern "C"`
-interface and no PyTorch headers, so ONE `nvcc` call compiles them into one
-shared library (seconds, not the minutes a PyTorch-extension build takes),
-which is loaded with `ctypes`. The build runs at first use, into
+interface and no PyTorch headers, so `nvcc` compiles each in seconds (not
+the minutes a PyTorch-extension build takes), one process per source, all
+at once, and links them into one shared library, which is loaded with
+`ctypes`. The build runs at first use, into
 `stitchax_torch/_build/` (gitignored), keyed by a hash of the sources.
 Nothing is built or loaded at import time: the module imports on machines
 without `nvcc` or a GPU, where only the plain PyTorch versions run.
@@ -74,26 +75,42 @@ def find_nvcc() -> str:
 
 
 def build() -> dict:
-    """Compile every csrc/*.cu into one .so with a single nvcc call.
-    Returns {cmd, seconds, path, ptxas}; raises on failure."""
+    """Compile every csrc/*.cu, one nvcc process per source, all started
+    together, then link the objects into one .so. Returns {cmds, link,
+    seconds, path, ptxas}; raises on failure."""
     out = library_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *[str(s) for s in sources()]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = find_nvcc()
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    cmds = [[nvcc, *flags, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, log) for c, p, log in zip(cmds, procs, logs)
+              if p.returncode != 0]
+    tmp = out.with_suffix(f".{tag}")
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+            *[str(o) for o in objs]]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append((link, proc.returncode, proc.stdout + proc.stderr))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(c)} ({rc}):\n{log}" for c, rc, log in failed))
     secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
-    log = proc.stdout + proc.stderr
-    ptxas = [ln.strip() for ln in log.splitlines()
+    ptxas = [ln.strip() for ln in "".join(logs).splitlines()
              if re.search(r"Compiling entry|Used \d+ registers|spill", ln)]
-    return {"cmd": " ".join(cmd), "seconds": secs, "path": str(out),
-            "ptxas": ptxas}
+    return {"cmds": [" ".join(c) for c in cmds], "link": " ".join(link),
+            "seconds": secs, "path": str(out), "ptxas": ptxas}
 
 
 def ensure_built() -> Optional[dict]:
@@ -113,7 +130,8 @@ def load_library() -> ctypes.CDLL:
                       ctypes.c_longlong)
     lib.stx_gsa_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                       ci, vp]
-    lib.stx_cost_lookup.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.stx_cost_lookup.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                    vp]
     lib.stx_tps_grid.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, vp]
     lib.stx_window_attention.argtypes = [vp] * 7 + [ci] * 6 + [cl] * 5 + [
         ci, vp]

@@ -61,8 +61,18 @@ def bilinear_gather_b(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
     wy0, wy1 = wy0.to(img.dtype)[..., None], wy1.to(img.dtype)[..., None]
     wx0, wx1 = wx0.to(img.dtype)[..., None], wx1.to(img.dtype)[..., None]
-    out = (wy0 * (tap(sy, sx) * wx0 + tap(sy, sx + 1) * wx1)
-           + wy1 * (tap(sy + 1, sx) * wx0 + tap(sy + 1, sx + 1) * wx1))
+    # stitchax's einsum (stitchax/ops/sampling.py:82), as XLA compiles it
+    # on the CPU, eagerly and under jit alike: the weights wy*wx, rounded,
+    # then a chain of fused multiply-adds over the taps in the order y0x0,
+    # y1x0, y0x1, y1x1. torch fuses nothing across ops, so each FMA is
+    # emulated: the product is exact in float64, the sum is rounded there
+    # and then to the image dtype (a true FMA rounds once; the two can
+    # differ only where the float64 sum lands on a tie of the narrow type)
+    terms = ((wy0 * wx0, tap(sy, sx)), (wy1 * wx0, tap(sy + 1, sx)),
+             (wy0 * wx1, tap(sy, sx + 1)), (wy1 * wx1, tap(sy + 1, sx + 1)))
+    out = terms[0][0] * terms[0][1]
+    for w, v in terms[1:]:
+        out = (w.double() * v.double() + out.double()).to(img.dtype)
     return out.reshape(*shape, C)
 
 

@@ -169,10 +169,22 @@ class Stitcher:
         t0 = self._sync() if timings is not None else 0.0
         out = stitch_model_step(self._homo_fn, self._flow_fn, img1, img2, a,
                                 flow_pair_fn=self._flow_pair_fn)
-        box = out["canvas_box"][0].cpu().numpy()
         if timings is not None:
-            t1 = self._sync()
-            timings["align_ms"] = (t1 - t0) * 1e3
+            timings["align_ms"] = (self._sync() - t0) * 1e3
+        return self.stitch_aligned(img1, img2, out, timings)
+
+    @torch.no_grad()
+    def stitch_aligned(self, img1: torch.Tensor, img2: torch.Tensor,
+                       out: Dict[str, torch.Tensor],
+                       timings: Optional[Dict[str, float]] = None
+                       ) -> Dict[str, Any]:
+        """The stages after the alignment: the canvas render, TPS, the mix
+        and the composition, from what `stitch_model_step` gives (H, flow,
+        canvas_box and, with the consistency mask, origin_occlusion_mask;
+        each batched, B = 1)."""
+        a = self.align_cfg
+        t1 = self._sync() if timings is not None else 0.0
+        box = out["canvas_box"][0].cpu().numpy()
         width_min, height_min = float(box[0]), float(box[1])
         true_w = int(float(box[2]) - width_min)
         true_h = int(float(box[3]) - height_min)

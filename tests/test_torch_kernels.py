@@ -69,6 +69,56 @@ def test_gsa_wrapper_uses_plain_on_cpu(rng):
     assert out.shape == q.shape and library.launches == before
 
 
+def gsa_mma_emulation(q, k, v, heads, chunk=64):
+    """The rounding of K1's bf16 tensor-core kernel (csrc/gsa_attention.cu)
+    in plain PyTorch: q K^T of bf16 values summed in fp32, an online softmax
+    in the exp2 domain over chunks of 64 keys (running max, rescaled sums),
+    P rounded to bf16 for the P V product and for the row sum, one rounding
+    of the output to bf16."""
+    B, N, C = q.shape
+    M = k.shape[1]
+    d = C // heads
+    qh, kh, vh = (t.float().reshape(B, -1, heads, d).transpose(1, 2)
+                  for t in (q, k, v))
+    scale_log2 = np.float32(1.4426950408889634) / np.sqrt(np.float32(d))
+    m = torch.full((B, heads, N, 1), -torch.inf)
+    l = torch.zeros(B, heads, N, 1)
+    o = torch.zeros(B, heads, N, d)
+    for kc in range(0, M, chunk):
+        s = qh @ kh[:, :, kc:kc + chunk].transpose(-1, -2) * float(scale_log2)
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        a = torch.exp2(m - mx)
+        m = mx
+        p = torch.exp2(s - m).bfloat16().float()
+        l = l * a + p.sum(-1, keepdim=True)
+        o = o * a + p @ vh[:, :, kc:kc + chunk]
+    return (o / l).transpose(1, 2).reshape(B, N, C).bfloat16()
+
+
+# the main path's K1 shapes (B, N, C, heads) with N cut to 512, at its 256
+# keys, and key counts below a chunk and ragged
+GSA_EMULATION_CASES = [(2, 512, 128, 4, 256), (2, 512, 256, 8, 256),
+                       (1, 512, 128, 4, 256), (1, 512, 256, 8, 256),
+                       (16, 512, 128, 8, 256), (2, 300, 64, 2, 49),
+                       (3, 77, 128, 8, 100)]
+
+
+@pytest.mark.parametrize("B,N,C,heads,M", GSA_EMULATION_CASES)
+def test_gsa_mma_rounding_holds_one_bf16_ulp(B, N, C, heads, M):
+    """K1's bf16 kernel rounds P to bf16 before the tensor-core P V product.
+    Its rounding, emulated on the CPU, stays within the tolerance the card
+    holds the kernel to: one bf16 ulp of max |out| of the plain version,
+    on inputs drawn as chip_smoke.py draws them."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g).bfloat16()
+               for s in ((B, N, C), (B, M, C), (B, M, C)))
+    want = tgsa.gsa_attention_plain(q, k, v, heads=heads).float()
+    got = gsa_mma_emulation(q, k, v, heads).float()
+    top = want.abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert (got - want).abs().max().item() <= ulp
+
+
 # ------------------------------- K2 ------------------------------------------
 
 @pytest.mark.parametrize("variant", ["opencv", "kornia"])

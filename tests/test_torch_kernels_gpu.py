@@ -22,7 +22,14 @@ from stitchax_torch.utils.precision import fp32_exact
 
 GSA_CASES = [(2, 100, 16, 64, 4),    # d = 16, ragged N
              (1, 64, 9, 64, 2),      # d = 32
-             (3, 37, 256, 128, 8)]   # d = 16, M at the kernel's limit
+             (3, 37, 256, 128, 8),   # d = 16, M at the kernel's limit
+             # the tensor-core path's chunks of 64 keys and 256-row tiles:
+             # M under one chunk and ragged, N ragged, both head widths
+             (2, 301, 49, 64, 2),    # d = 32
+             (1, 517, 100, 128, 8),  # d = 16
+             (2, 1000, 256, 256, 8),  # d = 32
+             (3, 259, 49, 64, 4),    # d = 16
+             (1, 700, 100, 64, 2)]   # d = 32
 
 
 @pytest.fixture
@@ -70,6 +77,39 @@ def test_cost_lookup_kernel_matches_plain(cuda, dtype):
     coords = (torch.rand(300, 2, generator=g) * 90 - 15).to(cuda)
     got = tcl.cost_lookup(cm, coords)
     want = tcl.cost_lookup_plain(cm, coords)
+    # every product and sum rounded on its own in both: bit-equal
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# K3 cases (P, H2, W2, r, map dtype, coordinate dtype): the main path's
+# (bf16 maps and coordinates, 64x64, r = 4), an odd row length (no pair
+# loads), and other radii; coordinates run past every edge
+COST_CASES = [(8192, 64, 64, 4, torch.bfloat16, torch.bfloat16),
+              (8192, 64, 64, 4, torch.float32, torch.float32),
+              (500, 33, 47, 4, torch.bfloat16, torch.float32),
+              (500, 33, 47, 4, torch.float32, torch.bfloat16),
+              (300, 40, 56, 1, torch.bfloat16, torch.bfloat16),
+              (300, 40, 56, 7, torch.float32, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,H2,W2,r,dtype,cdtype", COST_CASES)
+def test_cost_lookup_kernel_edges_and_coordinate_dtypes(cuda, P, H2, W2, r,
+                                                        dtype, cdtype):
+    g = torch.Generator().manual_seed(0)
+    cm = torch.randn(P, H2, W2, generator=g).to(cuda, dtype)
+    span = torch.tensor([W2, H2], dtype=torch.float32)
+    coords = ((torch.rand(P, 2, generator=g) * 1.5 - 0.25) * span
+              + torch.randint(-1, 2, (P, 2), generator=g) * (r + 2))
+    coords[:8] = torch.tensor([[-r - 1.5, 3.25], [W2 + r + .5, 3.],
+                               [4.75, -r - 1.], [5., H2 + r + .25],
+                               [-.5, -.5], [W2 - .5, H2 - .5], [0., 0.],
+                               [W2 - 1., H2 - 1.]])
+    coords = coords.to(cuda, cdtype)
+    before = library.launches["cost_lookup"]
+    got = tcl.cost_lookup(cm, coords, r)
+    assert library.launches["cost_lookup"] == before + 1
+    want = tcl.cost_lookup_plain(cm, coords, r)
     # every product and sum rounded on its own in both: bit-equal
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 

@@ -1,0 +1,409 @@
+"""The port's stitch against stitchax's own, at full size.
+
+stitchax's outputs for `demo_data/demo1` and `demo2` (fast_cv_g8,
+`results/ckpt_r05_bf16.npz`, native 384x448, fp32 nets, on the CPU) are
+committed in `tests/torch_reference/demo_stitchax_fp32.npz`. They come from
+stitchax's jitted `Stitcher`, the path out.py runs, with its uint8 pack in
+exact RGB (`STITCHAX_PACK=rgb`) and every canvas fetched from the device
+(`STITCHAX_FETCH_ALL=1`). This file is the only producer of that npz:
+
+    python tests/test_torch_parity.py --write
+
+The tier-1 test feeds the committed alignment (H, flow, occlusion mask,
+canvas box) into the port's render, TPS and mix on the CPU and holds mask1
+bit-equal to stitchax's and warp2 / ave_fusion within one uint8 level. The
+slow test runs the port's `Stitcher.stitch` end to end against the file and
+against a fresh stitchax run. `chip_smoke.py` diffs the card's stitch
+against the same file.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+REF = os.path.join(REPO, "tests", "torch_reference", "demo_stitchax_fp32.npz")
+CKPT = os.path.join(REPO, "results", "ckpt_r05_bf16.npz")
+PAIRS = ("demo1", "demo2")
+CONFIG = "fast_cv_g8"
+# keys of each pair in the npz besides the decoded input images img1 / img2
+# (uint8; the card's machine has no JPEG decoder); the uint8 canvases are
+# cropped to the true canvas as stitchax's Stitcher.stitch returns them, the
+# fp32 masks are at the bucketed canvas size, as stitch_render gives them
+ALIGN_KEYS = ("H", "flow", "origin_occlusion_mask", "canvas_box")
+CONTROL_KEYS = ("control_src", "control_dst", "control_valid")
+
+
+def load_pair(name):
+    from PIL import Image
+    return [np.asarray(Image.open(os.path.join(REPO, "demo_data", name, f))
+                       .convert("RGB"), np.float32)
+            for f in ("input1.jpg", "input2.jpg")]
+
+
+def stitchax_stitcher():
+    """stitchax's Stitcher as out.py builds it for fast_cv_g8, with the
+    trained weights and its homography and flow nets called in fp32."""
+    os.environ["STITCHAX_PACK"] = "rgb"
+    os.environ["STITCHAX_FETCH_ALL"] = "1"
+    import jax
+    import jax.numpy as jnp
+
+    import inf_configs.fast_cv_g8 as inf
+    from stitchax.align.adapter import AlignConfig
+    from stitchax.convert import load_params_npz
+    from stitchax.models import FlowFormer, UDIS2HomographyNet
+    from stitchax.models.flowformer import FlowFormerConfig
+    from stitchax.run.stitcher import Stitcher, StitchModels
+    from stitchax.tps.pipeline import TPSConfig
+
+    flow_model = FlowFormer(FlowFormerConfig(upsample_all=False))
+    homo_model = UDIS2HomographyNet()
+    x = jnp.zeros((1, 512, 512, 3), jnp.float32)
+    key = jax.random.PRNGKey(0)
+    tpl = {"flow": jax.eval_shape(lambda: flow_model.init(key, x, x)),
+           "homo": jax.eval_shape(lambda: homo_model.init(key, x, x))}
+    tpl = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), tpl)
+    params = load_params_npz(CKPT, tpl)
+    models = StitchModels(flow_model, params["flow"], homo_model,
+                          params["homo"], None, None)
+    icfg = inf.get_infernce_config()
+    c = inf.get_tps_pipline_config(icfg)
+    tps_cfg = TPSConfig(
+        grid_h=c["grid_h"], grid_w=c["grid_w"], pad_num=c["pad_num"],
+        get_pt_method=c["get_pt_methods"][0], flow_limit=c["flow_limit"],
+        add_corner=c["add_corner"],
+        use_boundary_limit=c["use_boundary_limit"],
+        residual_flow_use_forward=c["residual_flow_use_forward"],
+        do_avg_pooling=c["do_avg_pooling"],
+        use_occ_filter=c["use_occ_filter"],
+        use_border_points_mask=c["use_border_points_mask"],
+        use_valid_on_flow=c["use_valid_on_flow"],
+        affine_scale=c["affine_scale"], kernel_scale=c["kernel_scale"],
+        output2_is_only_tps=c["output2_is_only_tps"])
+    align_cfg = AlignConfig(
+        use_fb_consistency_mask=icfg["use_fb_consistency_mask"])
+    st = Stitcher(models, icfg, align_cfg, tps_cfg,
+                  inpainter_name=c["inpainter"], mix_method=c["mix_method"],
+                  homo_fn=lambda a, b: homo_model.apply(params["homo"], a, b),
+                  flow_fn=lambda a, b: flow_model.apply(params["flow"], a, b))
+    # both flow directions from one bidirectional call, as out.py's
+    # Stitcher takes them, in fp32
+    st._flow_pair_fn = lambda a, b: flow_model.apply(
+        params["flow"], a, b, method=FlowFormer.bidirectional)
+    return st
+
+
+def stitchax_reference(st, img1, img2):
+    """One pair through stitchax's jitted stages (the programs its
+    Stitcher caches and out.py runs): the alignment, the fp32 canvas masks
+    and the control points from the stages, the uint8 canvases from
+    Stitcher.stitch."""
+    import jax.numpy as jnp
+
+    from stitchax.align.adapter import bucket_canvas
+
+    H, W = img1.shape[:2]
+    i1, i2 = jnp.asarray(img1[None]), jnp.asarray(img2[None])
+    out = st._model_step((H, W), 1)(i1, i2)
+    box = np.asarray(out["canvas_box"])[0]
+    a = st.align_cfg
+    out_w = bucket_canvas(int(box[2] - box[0]), a.canvas_bucket, a.max_canvas)
+    out_h = bucket_canvas(int(box[3] - box[1]), a.canvas_bucket, a.max_canvas)
+    # the Stitcher passes each pair's canvas origin as a 0-d scalar
+    wm, hm = out["width_min"][0], out["height_min"][0]
+    r = st._render_step((H, W), out_h, out_w)(
+        i1, i2, out["H"], out["flow"], out["origin_occlusion_mask"], wm, hm)
+    t = st._tps_step((H, W), out_h, out_w)(
+        r["output1"][0], r["mask1"][0], r["H_warp"][0], r["H_warp_mask"][0],
+        r["final_warp"][0], out["flow"][0], wm, hm, r["occlusion_mask"][0],
+        None)
+    res = st.stitch(img1, img2)
+    u8 = lambda v: np.asarray(v).astype(np.uint8)
+    return {
+        "img1": u8(img1), "img2": u8(img2),
+        "H": np.asarray(out["H"][0]), "flow": np.asarray(out["flow"][0]),
+        "origin_occlusion_mask": np.asarray(
+            out["origin_occlusion_mask"][0]).astype(np.uint8),
+        "canvas_box": box, "canvas_hw": np.array([out_h, out_w]),
+        "control_src": np.asarray(t["control_src"]),
+        "control_dst": np.asarray(t["control_dst"]),
+        "control_valid": np.asarray(t["control_valid"]),
+        "mask1": np.asarray(r["mask1"][0]), "mask2": np.asarray(t["mask2"]),
+        "warp1": u8(res["warp1"]), "warp2": u8(res["warp2"]),
+        "ave_fusion": u8(res["ave_fusion"]),
+    }
+
+
+def write_reference(path=REF):
+    st = stitchax_stitcher()
+    arrays = {}
+    for name in PAIRS:
+        ref = stitchax_reference(st, *load_pair(name))
+        arrays.update({f"{name}/{k}": v for k, v in ref.items()})
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, **arrays)
+    return path
+
+
+# ------------------------------ the tests ------------------------------------
+
+def _psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return np.inf if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def _u8(x):
+    """A canvas as stitchax's exact-RGB pack rounds it."""
+    return np.rint(np.clip(x, 0, 255)).astype(np.uint8)
+
+
+def _ref(name):
+    with np.load(REF) as d:
+        return {k.split("/", 1)[1]: d[k] for k in d.files
+                if k.startswith(name + "/")}
+
+
+def _canvas_checks(name, got, ref):
+    """The port's stitch (Stitcher.stitch_tensors' dict, on the CPU) against
+    stitchax's committed outputs: mask1 bit-equal, warp1 / warp2 /
+    ave_fusion within one uint8 level of stitchax's. Returns the PSNRs."""
+    th, tw = ref["warp2"].shape[:2]
+    assert tuple(got["canvas"]) == tuple(ref["canvas_hw"]), name
+    assert tuple(got["true_hw"]) == (th, tw), name
+    mask1 = got["mask1"].numpy()
+    flips = int((mask1 != ref["mask1"]).sum())
+    assert flips == 0, (name, "mask1 values that differ", flips)
+    psnr = {}
+    for key, ours in (("warp1", "output1"), ("warp2", "output2"),
+                      ("ave_fusion", "new_blend_image")):
+        a = _u8(got[ours].numpy()[:th, :tw])
+        d = np.abs(a.astype(int) - ref[key].astype(int))
+        assert d.max() <= 1, (name, key, int(d.max()), int((d > 1).sum()))
+        psnr[key] = _psnr(a, ref[key])
+    return psnr
+
+
+def _control_checks(name, got, ref, atol=1e-4):
+    """The same control points, valid at the same places; their targets,
+    which sample the flow, within `atol` px (from one flow: 1e-4, where one
+    fp32 ulp of ~150 px is 1.5e-5 and the TPS stage sums in another
+    order)."""
+    np.testing.assert_array_equal(got["control_src"], ref["control_src"],
+                                  err_msg=name)
+    np.testing.assert_array_equal(got["control_valid"], ref["control_valid"],
+                                  err_msg=name)
+    np.testing.assert_allclose(got["control_dst"], ref["control_dst"],
+                               rtol=0, atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("name", PAIRS)
+def test_render_tps_mix_match_stitchax(name):
+    """stitchax's alignment of the pair (H, native-resolution flow,
+    occlusion mask, canvas box) through the port's render, TPS and mix in
+    fp32 on the CPU. mask1 is bit-equal to stitchax's jitted render (the
+    thin/thick hole test of the mix hangs on its last ulp), the control
+    points are stitchax's, warp2 and ave_fusion are within one uint8 level
+    (warp2 read 88.70 / 90.21 dB PSNR, warp1 equal)."""
+    import torch
+
+    from stitchax_torch.run.stitcher import Stitcher
+
+    ref = _ref(name)
+    img1, img2 = (torch.from_numpy(i)[None] for i in load_pair(name))
+
+    def unused(*args):
+        raise AssertionError("the alignment is given")
+
+    st = Stitcher(None, device="cpu", homo_fn=unused, flow_fn=unused,
+                  config=CONFIG)
+    align = {k: torch.from_numpy(ref[k].astype(np.float32))[None]
+             for k in ALIGN_KEYS}
+    got = st.stitch_aligned(img1, img2, align)
+    _control_checks(name, {k: got[k].numpy() for k in CONTROL_KEYS}, ref)
+    psnr = _canvas_checks(name, got, ref)
+    print(name, psnr)
+
+
+@pytest.mark.parametrize("name", PAIRS)
+def test_reference_holds_the_decoded_demo_pair(name):
+    """The committed inputs (which chip_smoke.py stitches on a machine
+    without a JPEG decoder) are the demo pair as stitchax's load_image
+    decodes it."""
+    ref = _ref(name)
+    for img, key in zip(load_pair(name), ("img1", "img2")):
+        np.testing.assert_array_equal(ref[key], img.astype(np.uint8))
+
+
+@pytest.mark.parametrize("name", PAIRS)
+def test_canvas_box_matches_stitchax(name):
+    """The canvas bounds from stitchax's H through the port's 64x64 mesh
+    (its grid values are the jitted stitchax's, `xla_linspace`)."""
+    import torch
+
+    from stitchax_torch.align.adapter import canvas_box
+
+    ref = _ref(name)
+    H, W = load_pair(name)[0].shape[:2]
+    box = canvas_box(torch.from_numpy(ref["H"])[None], H, W)[0].numpy()
+    np.testing.assert_array_equal(box, ref["canvas_box"])
+
+
+def test_xla_linspace_is_jitted_jnp_linspace():
+    """The port's grid values against jnp.linspace under jax.jit, at every
+    length the main path meets: the [-1, 1] grids of the 512^2 model input
+    and of canvases in 256-pixel buckets, the 64-point meshes over native
+    image sides, and the pixel meshes."""
+    import jax
+    import jax.numpy as jnp
+
+    from stitchax_torch.ops.grid import xla_linspace
+
+    cases = [(-1.0, 1.0, n) for n in (256, 384, 448, 512, 768, 1024, 1280)]
+    cases += [(0.0, float(s), 64) for s in (224, 384, 448, 512, 600)]
+    cases += [(0.0, float(s), s + 1) for s in (384, 448, 512)]
+    for start, stop, n in cases:
+        want = np.asarray(jax.jit(
+            lambda: jnp.linspace(start, stop, n, dtype=jnp.float32))())
+        np.testing.assert_array_equal(xla_linspace(start, stop, n), want,
+                                      err_msg=str((start, stop, n)))
+
+
+@pytest.mark.parametrize("rule", ["interior", "zeros"])
+def test_bilinear_tap_sum_matches_jitted_stitchax(rule):
+    """The port's bilinear gather against stitchax's jitted 2x2 gather and
+    einsum, bit for bit, on 2.4M taps (400k samples x 6 channels, the
+    canvas render's image-and-ones stack) with coordinates past every edge:
+    the float64 emulation of XLA's fused multiply-adds."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from stitchax.ops.sampling import _bilinear_gather_2x2
+    from stitchax_torch.ops.sampling import bilinear_gather_b
+
+    rng = np.random.default_rng(0)
+    H, W, C, P = 96, 128, 6, 400_000
+    img = (rng.random((H, W, C)) * 255).astype(np.float32)
+    img[..., 3:] = 1.0
+    x = (rng.random(P) * (W + 4) - 2).astype(np.float32)
+    y = (rng.random(P) * (H + 4) - 2).astype(np.float32)
+    want = np.asarray(jax.jit(
+        lambda a, u, v: _bilinear_gather_2x2(a, u, v, rule))(
+        jnp.asarray(img), jnp.asarray(x), jnp.asarray(y)))
+    got = bilinear_gather_b(torch.from_numpy(img)[None],
+                            torch.from_numpy(x)[None],
+                            torch.from_numpy(y)[None], rule)[0].numpy()
+    assert int((got != want).sum()) == 0
+
+
+def _port_stitch_fp32(models, img1, img2, homo_fn=None):
+    import torch
+
+    from stitchax_torch.run.stitcher import Stitcher
+
+    st = Stitcher(models, device="cpu", config=CONFIG, homo_fn=homo_fn)
+    to = lambda im: torch.from_numpy(im)[None]
+    return st.stitch_tensors(to(img1), to(img2))
+
+
+@pytest.fixture(scope="module")
+def trained():
+    """The port's models with the trained weights (fp32, CPU) and
+    stitchax's Stitcher as out.py runs it."""
+    import torch
+
+    from stitchax_torch.run.stitcher import StitchModels
+
+    if not os.path.isfile(CKPT):
+        pytest.skip(f"{CKPT} is not in this checkout")
+    return (StitchModels.from_npz(CKPT, "cpu", torch.float32, CONFIG),
+            stitchax_stitcher())
+
+
+def _end_to_end_checks(name, got, refs):
+    for ref in refs:
+        H = np.abs(got["H"].numpy() - ref["H"]).max()
+        flow = np.abs(got["flow"].numpy() - ref["flow"]).max()
+        print(name, "H", H, "flow", flow)
+        assert H <= 1e-4, (name, H)
+        assert flow <= 5e-3, (name, flow)
+        np.testing.assert_array_equal(got["canvas_box"].numpy(),
+                                      ref["canvas_box"])
+        # the targets move with the flow
+        _control_checks(name, {k: got[k].numpy() for k in CONTROL_KEYS},
+                        ref, atol=5e-3)
+        print(name, _canvas_checks(name, got, ref))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", PAIRS)
+def test_port_stitch_matches_stitchax_end_to_end(trained, name):
+    """The port's Stitcher (trained ckpt_r05 weights, fp32, CPU) on the
+    demo pair at its native 384x448, against the committed stitchax outputs
+    and against a fresh run of stitchax's jitted Stitcher: H to 1e-4, flow
+    max 5e-3 px, the same canvas box and control points (their targets,
+    sampled from the flow, to the flow's 5e-3 px), mask1 bit-equal, warp2
+    and ave_fusion within one uint8 level.
+
+    demo2 fails the flow limit: the two homography nets' fp32 convolutions
+    differ by ~1e-5 px in the corner offsets, which moves one pixel of the
+    512^2 warp of img2 across the interior sampler's edge (a reference
+    threshold), and the flow net spreads that pixel (ROADMAP C1). The next
+    test shows that nothing past the homography net departs."""
+    models, jst = trained
+    img1, img2 = load_pair(name)
+    got = _port_stitch_fp32(models, img1, img2)
+    _end_to_end_checks(name, got, (_ref(name),
+                                   stitchax_reference(jst, img1, img2)))
+
+
+def stitchax_offsets(st, img1, img2):
+    """stitchax's homography-net corner offsets of the pair as its model
+    step forms them: the 512^2 resize, [-1, 1] inputs, fp32 net, jitted."""
+    import jax
+    import jax.numpy as jnp
+
+    from stitchax import ops
+
+    def fn(i1, i2):
+        S = st.align_cfg.model_size
+        a = ops.resize_image_b(i1, S, S)
+        b = ops.resize_image_b(i2, S, S)
+        return st._homo_fn(a / 127.5 - 1.0, b / 127.5 - 1.0)
+
+    return np.asarray(jax.jit(fn)(jnp.asarray(img1[None]),
+                                  jnp.asarray(img2[None])))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", PAIRS)
+def test_port_stitch_matches_stitchax_from_its_homography(trained, name):
+    """The same end-to-end checks with stitchax's homography-net offsets
+    in place of the port's net: everything after that net (the homography,
+    the 512^2 warp, FlowFormer++ both ways, the canvas render, TPS, the
+    mix) gives stitchax's result."""
+    import torch
+
+    models, jst = trained
+    img1, img2 = load_pair(name)
+    offsets = torch.from_numpy(stitchax_offsets(jst, img1, img2))
+    got = _port_stitch_fp32(models, img1, img2,
+                            homo_fn=lambda a, b: offsets)
+    _end_to_end_checks(name, got, (_ref(name),))
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--write"]:
+        sys.exit("usage: python tests/test_torch_parity.py --write")
+    # the tests' XLA settings (tests/conftest.py), on the CPU
+    sys.path.insert(0, REPO)
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=8").strip()
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    print(write_reference())
