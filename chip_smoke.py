@@ -69,12 +69,16 @@ PAIR_HW = (384, 448)            # the demo pair's size
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BPS = 3.35e12
 PEAK = {"bf16": 989e12, "fp32": 67e12}
+# special-function-unit ops (lg2, ex2) per clock per SM on Hopper
+SFU_PER_CLOCK_SM = 16
 
 # kernel vs plain version on the same inputs, at main-path shapes. K1
 # (gsa_attention) and K4 (window_attention, in bf16) are held to one bf16
 # ulp of their largest |output| (`bf16_ulp`): both versions take the
-# softmax and the sums in fp32 and differ only in summation order before
-# the one rounding to bf16.
+# logits, the softmax and the sums in fp32 and round the output once to
+# bf16; the kernels also round P to bf16 for the tensor cores' P V product,
+# which their CPU emulations (tests/test_torch_kernels.py) hold within
+# that ulp.
 TOL = {
     # K1 in fp32 (exact fp32 on the CUDA cores): summation order only
     "gsa_attention_fp32": 2e-5,
@@ -82,8 +86,10 @@ TOL = {
     "window_attention_fp32": 2e-5,
     # every product and sum rounded on its own in both: bit-equal
     "cost_lookup": 0.0,
-    # fp32 log and accumulation over N centers, order and fma differences
-    # (a few fp32 ulps of the [0, 1] map; an H100 read 3.6e-7, PERF.md)
+    # log and accumulation over N centers: the kernel's log on the
+    # special-function unit (lg2.approx, a few fp32 ulps), order and fma
+    # differences (a few fp32 ulps of the [0, 1] map; an H100 read 3.6e-7
+    # with the precise logf, PERF.md)
     "tps_grid": 5e-6,
 }
 # stitch in fp32 on the card (TF32 off) vs on the CPU, with the trained
@@ -161,22 +167,25 @@ def device_ms(fn, iters: int = 20):
     """Mean device time of one fn() call in ms, from the profiler: the sum
     of the device activities (kernels, copies, sets) it recorded over
     `iters` calls. Unlike `cuda_time`, host gaps between launches do not
-    count. None where the profiler records no device activity."""
+    count. A profile that recorded no device activity (the profiler
+    sometimes returns none) is taken again, three times at most; None if
+    none recorded any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        return None
-    return sum(e.time_range.end - e.time_range.start
-               for e in dev) / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            return sum(e.time_range.end - e.time_range.start
+                       for e in dev) / 1e3 / iters
+    return None
 
 
 def _add(total, x, n=1):
@@ -193,6 +202,35 @@ def bound_ms(nbytes: float, nflops: float, peak: float):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = nflops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def tps_bound_ms(N, out_h, out_w):
+    """K2's least time: the larger of its bytes (centers read once, the
+    (H, W, 2) map written once), its fp32 flops per (pixel, center) pair
+    (dx 1, d2 2, max 1, times ln 2 1, times d2 1, select 1, two FMAs 4:
+    11, at the fp32 peak) and its one log per pair on the special-function
+    unit, as built (`lg2.approx`: 16 per clock per SM at the maximum SM
+    clock). Returns (ms, "bytes" or "operations", the unit that
+    binds: "hbm", "fp32" or "sfu")."""
+    import torch
+    pairs = float(out_h) * out_w * N
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {"hbm": (N * 16 + 24 + out_h * out_w * 8) / HBM_BPS * 1e3,
+             "fp32": 11.0 * pairs / PEAK["fp32"] * 1e3,
+             "sfu": pairs / (SFU_PER_CLOCK_SM * n_sm * sm_clock_hz()) * 1e3}
+    unit = max(times, key=times.get)
+    return times[unit], ("bytes" if unit == "hbm" else "operations"), unit
 
 
 # ------------------------------- inputs --------------------------------------
@@ -504,21 +542,19 @@ def kernel_rows(tps_inputs, launches):
                                                         out_w), iters=5)
         d_k = device_ms(lambda: tps_grid.tps_grid(ctrl, kw, aw, out_h,
                                                   out_w))
-        # per (pixel, center): 2 sub + 3 for d2 + log + 2 mul + 2 fma ~ 12
-        b, by = bound_ms(N * 16 + 24 + out_h * out_w * 8,
-                         12.0 * out_h * out_w * N, PEAK["fp32"])
+        b, by, unit = tps_bound_ms(N, out_h, out_w)
         detail.append({"kernel": "tps_grid", "config": config, "N": N,
                        "out_h": out_h, "out_w": out_w, "calls": 1,
                        "max_abs_err": e, "tol": TOL["tps_grid"], "ms": t_k,
                        "device_ms": d_k, "plain_ms": t_p, "bound_ms": b,
-                       "bound_by": by})
+                       "bound_by": by, "bound_unit": unit})
     rows.append({"name": "tps_grid", "route": "cuda",
                  "source": "stitchax_torch/csrc/tps_grid.cu",
                  "replaces": "stitchax/ops/pallas/tps_kernel.py:53",
                  "launches": launches["tps_grid"], "max_abs_err": e,
                  "ms": t_k, "device_ms": d_k, "plain_ms": t_p,
-                 "bound_ms": b, "bound_by": by, "library_ms": None,
-                 "library_device_ms": None})
+                 "bound_ms": b, "bound_by": by, "bound_unit": unit,
+                 "library_ms": None, "library_device_ms": None})
 
     # K4
     row, more = window_rows(g, launches)

@@ -136,24 +136,6 @@ constexpr int kTiles = 2;     // 16-row tiles per warp (K/V staged once for all)
 constexpr int kChunk = 64;    // keys per online-softmax step
 constexpr int kBlockRows = kWarps * 16 * kTiles;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// D (16x8, fp32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 gsa_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,

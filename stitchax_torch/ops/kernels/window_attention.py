@@ -7,7 +7,10 @@ streams qx/kx/vx (B, H, W, C) plus per-window-position biases q_bias/k_bias
 (ws*ws, C) and v_bias (1, C): zero-padded border tokens then reduce exactly
 to the biases, as the reference pads before projecting, and take part as
 keys and values. `window_attention` launches the CUDA kernel for CUDA
-tensors and takes the plain PyTorch version only for CPU tensors.
+tensors and takes the plain PyTorch version only for CPU tensors. In bf16
+the kernel runs on the tensor cores and reads each token's channels with
+16-byte loads, so it takes 16-byte aligned tensors whose strides are
+multiples of 8 elements (as the main path's are) and raises otherwise.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch.nn.functional as F
 from . import library
 
 HEAD_DIMS = (16, 32)
-MAX_TOKENS = 64          # ws * ws, one thread per query row of a window
+MAX_TOKENS = 64          # ws * ws: four 16-row tiles (bf16), one thread
+                         # per query row (fp32)
 
 
 def partition(t: torch.Tensor, ws: int) -> torch.Tensor:
@@ -65,13 +69,13 @@ def window_attention_plain(qx, kx, vx, q_bias, k_bias, v_bias, *, heads: int,
 def _token_stride(t: torch.Tensor, name: str) -> int:
     """Token stride of a (B, H, W, C) view whose tokens are evenly spaced
     (e.g. one third of a fused qkv product); raises otherwise."""
-    B, H, W, C = t.shape
-    s = t.stride(2)
-    if t.stride(3) != 1 or t.stride(1) != W * s or t.stride(0) != H * W * s:
+    s0, s1, s2, s3 = t.stride()
+    _, H, W, _ = t.shape
+    if s3 != 1 or s1 != W * s2 or s0 != H * W * s2:
         raise ValueError(f"window_attention: {name} must have channel stride"
                          f" 1 and evenly spaced tokens, got strides "
                          f"{t.stride()}")
-    return s
+    return s2
 
 
 def window_attention(qx, kx, vx, q_bias, k_bias, v_bias, *, heads: int,
@@ -79,9 +83,12 @@ def window_attention(qx, kx, vx, q_bias, k_bias, v_bias, *, heads: int,
     if qx.device.type == "cpu":
         return window_attention_plain(qx, kx, vx, q_bias, k_bias, v_bias,
                                       heads=heads, ws=ws)
-    B, H, W, C = qx.shape
+    # the checks read each tensor's attributes once: this host path is
+    # most of an event-clocked call at the main path's small shapes
+    shape, dtype, dev = qx.shape, qx.dtype, qx.device
+    B, H, W, C = shape
     T = ws * ws
-    if (kx.shape != qx.shape or vx.shape != qx.shape or C % heads
+    if (kx.shape != shape or vx.shape != shape or C % heads
             or C // heads not in HEAD_DIMS or not 0 < T <= MAX_TOKENS
             or q_bias.shape != (T, C) or k_bias.shape != (T, C)
             or v_bias.shape != (1, C)):
@@ -91,23 +98,29 @@ def window_attention(qx, kx, vx, q_bias, k_bias, v_bias, *, heads: int,
             f"{tuple(q_bias.shape)} k_bias{tuple(k_bias.shape)} v_bias"
             f"{tuple(v_bias.shape)} heads={heads} ws={ws}")
     tensors = (qx, kx, vx, q_bias, k_bias, v_bias)
-    if any(t.dtype != qx.dtype for t in tensors):
-        raise TypeError("window_attention: streams and biases must share a "
-                        "dtype")
-    if any(t.device != qx.device or t.device.type != "cuda" for t in tensors):
-        raise ValueError("window_attention: tensors must share one CUDA "
-                         "device")
-    if q_bias.stride(1) != 1 or k_bias.stride(1) != 1 or v_bias.stride(1) != 1:
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError("window_attention: streams and biases must "
+                            "share a dtype")
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError("window_attention: tensors must share one "
+                             "CUDA device")
+    qbs, qbc = q_bias.stride()
+    kbs, kbc = k_bias.stride()
+    if qbc != 1 or kbc != 1 or v_bias.stride(1) != 1:
         raise ValueError("window_attention: biases need channel stride 1")
-    qs, ks, vs = (_token_stride(t, n) for t, n in ((qx, "qx"), (kx, "kx"),
-                                                  (vx, "vx")))
-    out = torch.empty(B, H, W, C, device=qx.device, dtype=qx.dtype)
-    lib = library.load_library()
-    err = lib.stx_window_attention(
-        qx.data_ptr(), kx.data_ptr(), vx.data_ptr(), q_bias.data_ptr(),
-        k_bias.data_ptr(), v_bias.data_ptr(), out.data_ptr(), B, H, W, C,
-        heads, ws, qs, ks, vs, q_bias.stride(0), k_bias.stride(0),
-        library.dtype_code(qx.dtype), library.stream_of(qx))
+    qs, ks, vs = (_token_stride(qx, "qx"), _token_stride(kx, "kx"),
+                  _token_stride(vx, "vx"))
+    ptrs = [t.data_ptr() for t in tensors]
+    code = library.dtype_code(dtype)
+    if code == library.BFLOAT16 and (any(p % 16 for p in ptrs)
+                                     or (qs | ks | vs | qbs | kbs) % 8):
+        raise ValueError("window_attention: bf16 tensors must be 16-byte "
+                         "aligned with strides that are multiples of 8")
+    out = torch.empty(shape, device=dev, dtype=dtype)
+    err = library.load_library().stx_window_attention(
+        *ptrs, out.data_ptr(), B, H, W, C, heads, ws, qs, ks, vs, qbs, kbs,
+        code, library.stream_of(qx))
     library.check(err, "window_attention")
     library.launches["window_attention"] += 1
     return out

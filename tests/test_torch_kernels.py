@@ -153,6 +153,17 @@ def test_tps_zero_weight_centers_neutral(rng):
     np.testing.assert_allclose(padded.numpy(), np.asarray(ref), atol=2e-5)
 
 
+def test_tps_wrapper_uses_plain_on_cpu(rng):
+    ctrl = T(rng.uniform(0, 1, (9, 2)).astype(np.float32))
+    kw = T((rng.standard_normal((9, 2)) * .05).astype(np.float32))
+    aw = T(np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]], np.float32))
+    before = dict(library.launches)
+    out = ttps.tps_grid(ctrl, kw, aw, 5, 7, "kornia")
+    assert library.launches == before
+    np.testing.assert_array_equal(
+        out.numpy(), ttps.tps_grid_plain(ctrl, kw, aw, 5, 7, "kornia").numpy())
+
+
 # ------------------------------- K3 ------------------------------------------
 
 def _cost_inputs(rng, B, H1, W1, H2, W2, lo, hi):
@@ -302,6 +313,78 @@ def test_window_plain_bf16_rounds_biased_streams_once(rng):
                                      ws=WS)
     # fp32 inputs skip the bias rounding: outputs <~ 4, a few bf16 ulps
     np.testing.assert_allclose(got.float().numpy(), ref.numpy(), atol=5e-2)
+
+
+def window_mma_emulation(qx, kx, vx, q_bias, k_bias, v_bias, *, heads, ws,
+                         keys=64):
+    """The rounding of K4's bf16 tensor-core kernel
+    (csrc/window_attention.cu) in plain PyTorch: the biased streams rounded
+    to bf16, q K^T of bf16 values summed in fp32 over the window's keys
+    padded to 64 with only the tile padding masked, the exact row max, P =
+    2^(s * scale_log2 - max * scale_log2) with the fused multiply-add's one
+    rounding (emulated in float64) and rounded to bf16 for the P V product
+    and for the row sum, the output times the reciprocal of that sum, one
+    rounding to bf16."""
+    B, H, W, C = qx.shape
+    T, d = ws * ws, C // heads
+    q, k, v = twa.biased_windows(qx, kx, vx, q_bias, k_bias, v_bias, ws)
+
+    def split(t, rows):
+        t = t.float().reshape(B, -1, T, heads, d).transpose(2, 3)
+        return torch.nn.functional.pad(t, (0, 0, 0, rows - T))
+
+    qh, kh, vh = split(q, T), split(k, keys), split(v, keys)
+    scale_log2 = np.float32(1.4426950408889634) / np.sqrt(np.float32(d))
+    s = qh @ kh.transpose(-1, -2)
+    s[..., T:] = -torch.inf
+    m = s.amax(-1, keepdim=True) * float(scale_log2)
+    arg = (s.double() * float(scale_log2) - m.double()).float()
+    p = torch.exp2(arg).bfloat16().float()
+    o = (p @ vh) * (1 / p.sum(-1, keepdim=True))
+    Hp, Wp = -(-H // ws) * ws, -(-W // ws) * ws
+    o = o.transpose(2, 3).reshape(B, Hp // ws, Wp // ws, ws, ws, C)
+    o = o.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C)
+    return o[:, :H, :W].bfloat16()
+
+
+def _window_inputs_bf16(B, H, W, C, fused, g):
+    """K4's bf16 inputs drawn as chip_smoke.py's `window_inputs` draws them
+    (on the CPU): with `fused`, the strided thirds of one qkv tensor and one
+    bias row broadcast over the window."""
+    T_ = WS * WS
+    if fused:
+        qkv = torch.randn(B, H, W, 3 * C, generator=g).bfloat16()
+        qx, kx, vx = qkv.split(C, -1)
+        bias = (torch.randn(3 * C, generator=g) * .3).bfloat16()
+        qb, kb, vb = bias.split(C)
+        return qx, kx, vx, qb.expand(T_, C), kb.expand(T_, C), vb[None]
+    qx, kx, vx = (torch.randn(B, H, W, C, generator=g).bfloat16()
+                  for _ in range(3))
+    qb, kb = ((torch.randn(T_, C, generator=g) * .3).bfloat16()
+              for _ in range(2))
+    vb = (torch.randn(1, C, generator=g) * .3).bfloat16()
+    return qx, kx, vx, qb, kb, vb
+
+
+# the main path's K4 shapes (B, C, heads, fused) with B and H x W cut and
+# ragged (H, W not multiples of 7), head dims 32 and 16
+WINDOW_EMULATION_CASES = [(2, 30, 23, 128, 4, True), (2, 20, 16, 256, 8, True),
+                          (1, 30, 23, 128, 4, True), (1, 20, 16, 256, 8, True),
+                          (4, 16, 19, 128, 8, False), (3, 9, 12, 64, 2, False)]
+
+
+@pytest.mark.parametrize("B,H,W,C,heads,fused", WINDOW_EMULATION_CASES)
+def test_window_mma_rounding_holds_one_bf16_ulp(B, H, W, C, heads, fused):
+    """K4's bf16 kernel rounds P to bf16 before the tensor-core P V product.
+    Its rounding, emulated on the CPU, stays within the tolerance the card
+    holds the kernel to: one bf16 ulp of max |out| of the plain version."""
+    g = torch.Generator().manual_seed(0)
+    args = _window_inputs_bf16(B, H, W, C, fused, g)
+    want = twa.window_attention_plain(*args, heads=heads, ws=WS).float()
+    got = window_mma_emulation(*args, heads=heads, ws=WS).float()
+    top = want.abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert (got - want).abs().max().item() <= ulp
 
 
 def test_window_wrapper_uses_plain_on_cpu(rng):

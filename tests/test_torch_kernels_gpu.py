@@ -57,15 +57,24 @@ def test_gsa_kernel_matches_plain(cuda, dtype, B, N, M, C, heads):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
+# K2 shapes (N, H, W): widths that are not a multiple of the 4 pixels a
+# thread takes, H * W not a multiple of a block's pixels, one center, the
+# default configuration's canvas, and more centers than 48 KiB of shared
+# memory holds (N > 3072), up to the kernel's limit
+TPS_CASES = [(77, 100, 130), (1, 37, 53), (106, 512, 768), (54, 61, 203),
+             (3073, 29, 31), (8192, 16, 23)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["opencv", "kornia"])
-def test_tps_kernel_matches_plain(cuda, variant):
+@pytest.mark.parametrize("N,H,W", TPS_CASES)
+def test_tps_kernel_matches_plain(cuda, variant, N, H, W):
     g = torch.Generator().manual_seed(0)
-    ctrl = torch.rand(77, 2, generator=g).to(cuda)
-    kw = (torch.randn(77, 2, generator=g) * .05).to(cuda)
+    ctrl = torch.rand(N, 2, generator=g).to(cuda)
+    kw = (torch.randn(N, 2, generator=g) * .05).to(cuda)
     aw = torch.tensor([[0.01, -0.02], [1.0, 0.05], [0.02, 0.97]], device=cuda)
-    got = ttps.tps_grid(ctrl, kw, aw, 100, 130, variant)
-    want = ttps.tps_grid_plain(ctrl, kw, aw, 100, 130, variant)
+    got = ttps.tps_grid(ctrl, kw, aw, H, W, variant)
+    want = ttps.tps_grid_plain(ctrl, kw, aw, H, W, variant)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
 
 
@@ -128,39 +137,64 @@ def test_wrappers_count_launches(cuda):
                                 "tps_grid": 0, "window_attention": 1}
 
 
-# K4 shapes (B, H, W, C, heads, fused): the main path's (stage 1 and 2 of
-# the twins encoders, whose LSA blocks split one fused qkv product into
+# K4 shapes (B, H, W, C, heads, fused, ws): the main path's (stage 1 and 2
+# of the twins encoders, whose LSA blocks split one fused qkv product into
 # strided views with broadcast biases; the cost perceiver's vertical blocks
 # on 2 directions x 8 latents), and ragged ones
-WINDOW_CASES = [(2, 128, 128, 128, 4, True), (2, 64, 64, 256, 8, True),
-                (16, 64, 64, 128, 8, False), (1, 9, 10, 32, 2, False),
-                (3, 14, 21, 64, 4, True), (2, 16, 20, 256, 8, False)]
+WINDOW_CASES = [(2, 128, 128, 128, 4, True, 7), (2, 64, 64, 256, 8, True, 7),
+                (16, 64, 64, 128, 8, False, 7), (1, 9, 10, 32, 2, False, 7),
+                (3, 14, 21, 64, 4, True, 7), (2, 16, 20, 256, 8, False, 7),
+                # the bf16 kernel's blocks serve one window and a group of
+                # heads, split further while the grid is small: the main
+                # path's 100- and 361-window calls, a single window, and a
+                # few windows whose heads split down to one a block
+                (1, 64, 64, 256, 8, True, 7), (1, 128, 128, 128, 4, True, 7),
+                (1, 7, 7, 64, 2, False, 7), (1, 5, 12, 256, 8, True, 7),
+                (3, 13, 15, 128, 8, False, 7), (2, 22, 9, 128, 4, True, 7),
+                # other window sizes: one 8-key tile (ws 2), a partly masked
+                # one (ws 5), four whole row tiles (ws 8)
+                (2, 7, 7, 64, 4, False, 2), (2, 16, 13, 64, 4, True, 5),
+                (2, 25, 19, 64, 4, False, 8)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,W,C,heads,fused", WINDOW_CASES)
-def test_window_kernel_matches_plain(cuda, dtype, B, H, W, C, heads, fused):
+@pytest.mark.parametrize("B,H,W,C,heads,fused,ws", WINDOW_CASES)
+def test_window_kernel_matches_plain(cuda, dtype, B, H, W, C, heads, fused,
+                                     ws):
     g = torch.Generator().manual_seed(0)
+    T = ws * ws
     if fused:
         qkv = torch.randn(B, H, W, 3 * C, generator=g).to(cuda, dtype)
         qx, kx, vx = qkv.split(C, -1)
         bias = (torch.randn(3 * C, generator=g) * .3).to(cuda, dtype)
         qb, kb, vb = bias.split(C)
-        qb, kb, vb = qb.expand(49, C), kb.expand(49, C), vb[None]
+        qb, kb, vb = qb.expand(T, C), kb.expand(T, C), vb[None]
     else:
         qx, kx, vx = (torch.randn(B, H, W, C, generator=g).to(cuda, dtype)
                       for _ in range(3))
-        qb, kb = ((torch.randn(49, C, generator=g) * .3).to(cuda, dtype)
+        qb, kb = ((torch.randn(T, C, generator=g) * .3).to(cuda, dtype)
                   for _ in range(2))
         vb = (torch.randn(1, C, generator=g) * .3).to(cuda, dtype)
     args = (qx, kx, vx, qb, kb, vb)
-    got = twa.window_attention(*args, heads=heads, ws=7)
-    want = twa.window_attention_plain(*args, heads=heads, ws=7)
+    got = twa.window_attention(*args, heads=heads, ws=ws)
+    want = twa.window_attention_plain(*args, heads=heads, ws=ws)
     # fp32: summation order only. bf16: both round the biased streams to
-    # bf16, take the softmax and sums in fp32 and round once; one bf16 ulp
+    # bf16, take the logits, softmax and sums in fp32 and round once (the
+    # kernel also rounds P to bf16 for the tensor cores); one bf16 ulp
     # (8 significant bits) of max |out|
     top = want.float().abs().max().item()
     tol = (2e-5 if dtype == torch.float32
            else 2.0 ** (math.floor(math.log2(top)) - 7))
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_window_kernel_refuses_misaligned_bf16(cuda):
+    """The bf16 kernel reads 16-byte chunks: a stream that starts off a
+    16-byte boundary is refused, not read misaligned."""
+    qkv = torch.randn(1, 7, 7, 3 * 64 + 1, device=cuda).bfloat16()
+    qx, kx, vx = qkv[..., 1:].split(64, -1)
+    b = torch.zeros(49, 64, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="aligned"):
+        twa.window_attention(qx, kx, vx, b, b, b[:1], heads=2, ws=7)
