@@ -26,11 +26,26 @@ Phases, each printing one JSON line before the next begins:
                          the CPU, compared
   stitch_vs_cpu_default  the same for the default configuration, down to
                          the composition and the learned masks
+  kernels_evaluation     K1, K3 and K4 against their plain versions at the
+                         evaluation's shapes (fp32, batch 12), timed beside
+                         their bounds and library yardsticks
   stitch_vs_stitchax     the fast_cv_g8 stitch of demo_data/demo1 and demo2
                          in fp32 on the card against stitchax's own outputs
                          (its jitted Stitcher on the CPU), committed in
                          tests/torch_reference/demo_stitchax_fp32.npz with
                          the decoded input images
+  jpeg                   the port's JPEG codec on the card's host: the demo
+                         inputs decode to Pillow's pixels and encode to
+                         Pillow's bytes; ms per decode and encode
+  cli                    the stitch CLI (python -m stitchax_torch.out) over
+                         demo_data/ into a temporary directory: fast_cv_g8
+                         in bf16 and the default configuration in fp32
+                         through its sweep (files, value path, launches,
+                         s per pair; demo1's default-configuration arrays
+                         against stitchax's), then the command itself
+  evaluate               validate_with_model on the committed 12-pair split
+                         (tests/torch_reference/udis_synth), batch 12, fp32,
+                         against stitchax's evaluation of it
 
 Then the kernel table (one JSON object), the nvidia-smi line, and the final
 `{"ok": true, "device": ...}` line. Any failed phase exits non-zero without
@@ -39,9 +54,10 @@ the final line. Imports nothing of JAX or of the JAX package.
     python3 chip_smoke.py --profile [TRACE.json] [--config NAME]
 
 instead traces one warm bf16 stitch of the same pair (with fast_cv_g8, or
-the named configuration) with torch.profiler and prints where the device
-time goes (top kernels by device time, the device's busy share of the
-stitch), optionally writing a Chrome trace.
+the named configuration; `--config evaluate`: one warm batch of the
+evaluation, 12 pairs in fp32) with torch.profiler and prints where the
+device time goes (top kernels by device time, the device's busy share),
+optionally writing a Chrome trace.
 """
 
 from __future__ import annotations
@@ -294,6 +310,70 @@ WINDOW_WS = 7
 # grid (K2) launches at least once
 EXPECT_LAUNCHES = {"gsa_attention": 9, "cost_lookup": 12,
                    "window_attention": 9}
+
+# the evaluation: `validate_with_model` over the committed 12-pair split
+# (tests/test_torch_eval.py) at 512^2, one batch of 12, fp32 nets. Each
+# batch runs FlowFormer++ twice (forward, then backward), not batched in
+# one call: per call K1 at the context encoder (B), the feature encoder
+# (B, twice) and the cost perceiver (8B, three times), K3 in each of the 12
+# decoder iterations at P = B x 64 x 64, K4 in the same LSA blocks as K1
+SYNTH = "tests/torch_reference/udis_synth"
+EVAL_REFERENCE = "tests/torch_reference/eval_stitchax_fp32.npz"
+EVAL_BATCH = 12
+EVAL_GSA_CALLS = [(EVAL_BATCH, 128 * 128, 128, 4, 6),
+                  (EVAL_BATCH, 64 * 64, 256, 8, 6),
+                  (8 * EVAL_BATCH, 64 * 64, 128, 8, 6)]
+EVAL_WINDOW_CALLS = [(EVAL_BATCH, 128, 128, 128, 4, True, 6),
+                     (EVAL_BATCH, 64, 64, 256, 8, True, 6),
+                     (8 * EVAL_BATCH, 64, 64, 128, 8, False, 6)]
+EVAL_COST_P, EVAL_COST_CALLS = EVAL_BATCH * 64 * 64, 24
+EXPECT_EVAL_LAUNCHES = {"gsa_attention": 18, "cost_lookup": 24,
+                        "window_attention": 18, "tps_grid": 0}
+EVAL_REPORT_KEYS = ("avg_psnr", "avg_ssim", "easy_psnr", "mid_psnr",
+                    "hard_psnr", "easy_ssim", "mid_ssim", "hard_ssim",
+                    "num_pairs")
+# the card's evaluation of the split against stitchax's (EVAL_REFERENCE):
+# the worst per-pair and report differences, the share of the two saved
+# pairs' coverage pixels that differ and the mean uint8 difference of
+# their warps where both cover. The coverage counts only where it is
+# exactly 1.0 (stitchax's `valid.astype(uint8)`, evaluate.py:99), so tiny
+# flow differences flip its pixels. An H100 read 0.0155 dB, 1.46e-3,
+# report 0.0041 dB / 4.4e-4, 3.40%, 3.5e-4 levels (PERF.md section 6; the
+# CPU reads about the same, tests/test_torch_eval.py): limits about 10x,
+# the share of flipped coverage pixels 3x
+EVAL_STITCHAX_TOL = {"psnr_abs_diff": 0.15, "ssim_abs_diff": 0.015,
+                     "report_psnr_abs_diff": 0.04,
+                     "report_ssim_abs_diff": 0.0045,
+                     "valid_moved_share": 0.1,
+                     "warped_mean_level": 0.0035}
+
+# the stitch CLI's files: each holds exactly the uint8 image of the
+# writer's value path (its bytes are the encoder's for that image), and
+# decodes within JPEG's loss of it (quality 75: an H100's host read
+# >= 35.2 dB on the demo canvases, 47.2 dB on the inputs)
+JPEG_LOSS_DB = 30.0
+# the default configuration's CLI stitch of demo1 in fp32 on the card
+# against stitchax's (tests/torch_reference/demo_stitchax_fp32.npz,
+# "all_img1_with_inpaint_g12_transRef/demo1/..."): PSNR on the uint8
+# canvases, the learned masks' mean |diff|, mask1 values that differ. An
+# H100 read 82.99 / 83.23 / 83.06 dB, 5.3e-7, 0 (the CPU 83.62 / 83.79 /
+# 83.64, 8.3e-7, tests/test_torch_parity.py): limits about 20x in squared
+# error and in the masks' mean
+CLI_DEFAULT_TOL = {"warp2_psnr_db": 70.0, "ave_fusion_psnr_db": 70.0,
+                   "composition_psnr_db": 70.0,
+                   "learned_mask_mean_abs": 1e-5, "mask1_moved_px": 0}
+# sha256 of Pillow's JPEG (quality 75) of each decoded demo input: the
+# encoder must write these bytes on the card's host too
+DEMO_JPEG_SHA256 = {
+    "demo1/input1": "6340493d71c15ba91a8faaebb16a9264"
+                    "330eaa1bc212930333e8f34f4a5b3488",
+    "demo1/input2": "3cdbcde390130ad989a1c5833222ab79"
+                    "39bd7095c22d6bc8bddd26f61a422fcb",
+    "demo2/input1": "6340493d71c15ba91a8faaebb16a9264"
+                    "330eaa1bc212930333e8f34f4a5b3488",
+    "demo2/input2": "dda5a2dc12ea5b7e4ffff7eb7d238be9"
+                    "7317caeaae9fdd35dcc1edb5b8d752bf",
+}
 
 
 def window_inputs(B, H, W, C, heads, fused, dtype, g):
@@ -563,6 +643,141 @@ def kernel_rows(tps_inputs, launches):
     return rows, detail
 
 
+def eval_kernel_rows():
+    """K1, K3 and K4 against their plain versions on the card at the
+    evaluation's shapes (fp32, batch 12), timed beside their bounds at the
+    fp32 peak and their library yardsticks. Returns {kernel: summary per
+    evaluation batch} and one entry per call shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from stitchax_torch.ops.kernels import (cost_lookup, gsa_attention,
+                                            window_attention as wa)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    f32 = torch.float32
+    rows, detail = {}, []
+
+    def add(name, entry, calls):
+        r = rows.setdefault(name, {"launches_per_batch": 0, "ms": 0.0,
+                                   "device_ms": 0.0, "plain_ms": 0.0,
+                                   "bound_ms": 0.0, "library_ms": 0.0,
+                                   "library_device_ms": 0.0,
+                                   "max_abs_err": 0.0, "bound_by": {}})
+        r["launches_per_batch"] += calls
+        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            r[k] += calls * entry[k]
+        for k in ("device_ms", "library_device_ms"):
+            r[k] = _add(r[k], entry[k], calls)
+        r["max_abs_err"] = max(r["max_abs_err"], entry["max_abs_err"])
+        by = r["bound_by"]
+        by[entry["bound_by"]] = by.get(entry["bound_by"], 0.0) + \
+            calls * entry["bound_ms"]
+        detail.append({"phase_shapes": "evaluation", **entry,
+                       "calls": calls})
+
+    for B, N, C, heads, calls in EVAL_GSA_CALLS:
+        q = torch.randn(B, N, C, device=dev, generator=g)
+        k = torch.randn(B, GSA_KEYS, C, device=dev, generator=g)
+        v = torch.randn(B, GSA_KEYS, C, device=dev, generator=g)
+        e = (gsa_attention.gsa_attention(q, k, v, heads=heads)
+             - gsa_attention.gsa_attention_plain(q, k, v, heads=heads)
+             ).abs().max().item()
+        d = C // heads
+        qh, kh, vh = (t.view(B, -1, heads, d).transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+        b, by = bound_ms(4 * (2 * B * N * C + 2 * B * GSA_KEYS * C),
+                         4.0 * B * N * GSA_KEYS * C, PEAK["fp32"])
+        add("gsa_attention", {
+            "kernel": "gsa_attention", "B": B, "N": N, "C": C,
+            "heads": heads, "dtype": "float32", "max_abs_err": e,
+            "tol": TOL["gsa_attention_fp32"],
+            "ms": cuda_time(lambda: gsa_attention.gsa_attention(
+                q, k, v, heads=heads), iters=5),
+            "device_ms": device_ms(lambda: gsa_attention.gsa_attention(
+                q, k, v, heads=heads), iters=5),
+            "plain_ms": cuda_time(lambda: gsa_attention.gsa_attention_plain(
+                q, k, v, heads=heads), iters=3, warmup=1),
+            "library_ms": cuda_time(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5),
+            "library_device_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5),
+            "bound_ms": b, "bound_by": by}, calls)
+        del q, k, v, qh, kh, vh
+
+    cm = torch.randn(EVAL_COST_P, COST_HW, COST_HW, device=dev, generator=g)
+    coords = (torch.rand(EVAL_COST_P, 2, device=dev, generator=g)
+              * (COST_HW + 12) - 6)
+    e = (cost_lookup.cost_lookup(cm, coords, COST_R)
+         - cost_lookup.cost_lookup_plain(cm, coords, COST_R)
+         ).abs().max().item()
+    off = torch.arange(-COST_R, COST_R + 1, device=dev, dtype=f32)
+    win = off.numel()
+    gx = (coords[:, 0, None, None] + off[:, None]).expand(-1, -1, win)
+    gy = (coords[:, 1, None, None] + off[None, :]).expand(-1, win, -1)
+    grid = torch.stack([gx, gy], -1) * (2.0 / (COST_HW - 1)) - 1.0
+    library_call = lambda: F.grid_sample(cm[:, None], grid, mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True)
+    steps = torch.arange(2 * COST_R + 2, device=dev)
+    f0 = torch.floor(coords).long() - COST_R
+    inb = [((f0[:, i:i + 1] + steps >= 0) & (f0[:, i:i + 1] + steps < COST_HW)
+            ).sum(1) for i in (0, 1)]
+    touched = float((inb[0] * inb[1]).sum().item())
+    b, by = bound_ms(touched * 4 + EVAL_COST_P * 2 * 4
+                     + EVAL_COST_P * win * win * 4,
+                     EVAL_COST_P * (3 * win * (win + 1) + 3 * win * win),
+                     PEAK["fp32"])
+    add("cost_lookup", {
+        "kernel": "cost_lookup", "P": EVAL_COST_P, "H2": COST_HW,
+        "W2": COST_HW, "r": COST_R, "dtype": "float32", "max_abs_err": e,
+        "tol": TOL["cost_lookup"],
+        "ms": cuda_time(lambda: cost_lookup.cost_lookup(cm, coords, COST_R)),
+        "device_ms": device_ms(lambda: cost_lookup.cost_lookup(
+            cm, coords, COST_R)),
+        "plain_ms": cuda_time(lambda: cost_lookup.cost_lookup_plain(
+            cm, coords, COST_R), iters=5),
+        "library_ms": cuda_time(library_call),
+        "library_device_ms": device_ms(library_call),
+        "bound_ms": b, "bound_by": by}, EVAL_COST_CALLS)
+    del cm, coords, grid
+
+    ws, T = WINDOW_WS, WINDOW_WS * WINDOW_WS
+    for B, H, W, C, heads, fused, calls in EVAL_WINDOW_CALLS:
+        args = window_inputs(B, H, W, C, heads, fused, f32, g)
+        e = (wa.window_attention(*args, heads=heads, ws=ws)
+             - wa.window_attention_plain(*args, heads=heads, ws=ws)
+             ).abs().max().item()
+        d = C // heads
+        q, k, v = wa.biased_windows(*args, ws)
+        qh, kh, vh = (t.reshape(-1, T, heads, d).transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+        n_win = q.shape[0] * q.shape[1]
+        b, by = bound_ms(4 * (4 * B * H * W * C + 2 * T * C + C),
+                         4.0 * n_win * T * T * C, PEAK["fp32"])
+        add("window_attention", {
+            "kernel": "window_attention", "B": B, "H": H, "W": W, "C": C,
+            "heads": heads, "fused_qkv": fused, "dtype": "float32",
+            "max_abs_err": e, "tol": TOL["window_attention_fp32"],
+            "ms": cuda_time(lambda: wa.window_attention(
+                *args, heads=heads, ws=ws), iters=5),
+            "device_ms": device_ms(lambda: wa.window_attention(
+                *args, heads=heads, ws=ws), iters=5),
+            "plain_ms": cuda_time(lambda: wa.window_attention_plain(
+                *args, heads=heads, ws=ws), iters=3, warmup=1),
+            "library_ms": cuda_time(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5),
+            "library_device_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5),
+            "bound_ms": b, "bound_by": by}, calls)
+        del args, q, k, v, qh, kh, vh
+    for r in rows.values():
+        r["bound_by"] = max(r["bound_by"], key=r["bound_by"].get)
+    torch.cuda.empty_cache()
+    return rows, detail
+
+
 # ------------------------------- stitch --------------------------------------
 
 def build_models(dtype, device, config=FAST):
@@ -799,6 +1014,335 @@ def stitch_vs_stitchax_phase():
     _check(res, STITCHAX_TOL, "stitch_vs_stitchax")
 
 
+def jpeg_phase():
+    """The port's JPEG decoder on the card's host: the demo inputs decode
+    to the pixels Pillow gave (REFERENCE holds them), the encoder writes
+    Pillow's bytes for them, and its files decode back within JPEG's loss.
+    ms per decode and per encode (448x384, 4:2:0, quality 75)."""
+    import hashlib
+
+    from stitchax_torch.io import jpeg
+
+    dec_ms, enc_ms, loss_db = [], [], []
+    with np.load(os.path.join(REPO, REFERENCE)) as ref:
+        for name in DEMO_PAIRS:
+            for i in (1, 2):
+                key = f"{name}/input{i}"
+                data = open(os.path.join(REPO, "demo_data", name,
+                                         f"input{i}.jpg"), "rb").read()
+                t0 = time.perf_counter()
+                img = jpeg.decode(data)
+                dec_ms.append((time.perf_counter() - t0) * 1e3)
+                if not np.array_equal(img, ref[f"{name}/img{i}"]):
+                    raise RuntimeError(f"jpeg: {key} decodes to other pixels "
+                                       "than Pillow's")
+                t0 = time.perf_counter()
+                out = jpeg.encode(img)
+                enc_ms.append((time.perf_counter() - t0) * 1e3)
+                if hashlib.sha256(out).hexdigest() != DEMO_JPEG_SHA256[key]:
+                    raise RuntimeError(f"jpeg: the encoding of {key} is not "
+                                       "Pillow's")
+                loss_db.append(_psnr(jpeg.decode(out), img))
+    res = {"phase": "jpeg", "images": len(dec_ms), "hw": [384, 448],
+           "decode_ms": dec_ms, "encode_ms": enc_ms,
+           "decode_ms_median": float(np.median(dec_ms)),
+           "encode_ms_median": float(np.median(enc_ms)),
+           "roundtrip_min_psnr_db": min(loss_db),
+           "decode_equal": True, "encode_equal": True}
+    _check(res, {"roundtrip_min_psnr_db": JPEG_LOSS_DB}, "jpeg")
+
+
+def _value_path(out, img1, img2):
+    """The uint8 image of each file as stitchax's writer forms it with its
+    exact-RGB pack (stitcher.py:129-134, pack.py:45-119), written out here
+    on its own to hold the port's writer to it."""
+    f32 = np.float32
+    img = lambda x: np.rint(np.clip(x.astype(f32), 0, 255)).astype(np.uint8)
+    quant = lambda m: np.rint(np.clip(m.astype(f32), 0, 1) * f32(255)) / \
+        f32(255)
+    files = {"input1": img1.astype(np.uint8), "input2": img2.astype(np.uint8)}
+    for name, key in (("H_warp", "H_warp"), ("flow_warp", "final_warp"),
+                      ("warp1", "output1"), ("warp2", "output2")):
+        files[name] = img(out[key])
+    for name in ("mask1", "mask2"):
+        files[name] = np.where(quant(out[name]) > 0.5, 255, 0).astype(
+            np.uint8)[..., 0]
+    files["ave_fusion"] = img(out["new_blend_image"])
+    if "composition" in out:
+        files["composition"] = img(out["composition"])
+        for name in ("learned_mask1", "learned_mask2"):
+            files[name] = (quant(out[name]) * f32(255.0)).astype(
+                np.uint8)[..., 0]
+    return files
+
+
+def _cli_files(stitcher, results):
+    """Check each pair's files against its stitch's arrays; returns the
+    worst JPEG loss in dB and the per-pair seconds."""
+    from stitchax_torch.io import jpeg
+    from stitchax_torch.run.stitcher import output_images
+
+    worst, pairs = float("inf"), {}
+    for (data_dict, result_path), (rp, out, err, t) in results:
+        if err is not None:
+            raise RuntimeError(f"cli: {rp} failed: {err!r}")
+        img1, img2 = stitcher.load_pair(data_dict)
+        files = output_images(out, img1, img2)
+        want = _value_path(out, img1, img2)
+        if list(files) != list(want):
+            raise RuntimeError(f"cli: files {list(files)}, expected "
+                               f"{list(want)}")
+        th, tw = (int(v) for v in out["true_hw"])
+        shapes = {"input1": img1.shape[:2], "input2": img2.shape[:2]}
+        if "composition" in out:       # at the canvas, or upsized
+            shapes.update(dict.fromkeys(
+                ("composition", "learned_mask1", "learned_mask2"),
+                out["composition"].shape[:2]))
+        for name, a in files.items():
+            if not np.array_equal(a, want[name]):
+                raise RuntimeError(f"cli: {rp}/{name}: the writer's uint8 "
+                                   "image is not stitchax's value path")
+            data = open(os.path.join(rp, name + ".jpg"), "rb").read()
+            if data != jpeg.encode(a):
+                raise RuntimeError(f"cli: {rp}/{name}.jpg does not hold the "
+                                   "writer's image")
+            got = jpeg.decode(data)
+            if got.shape[:2] != tuple(shapes.get(name, (th, tw))):
+                raise RuntimeError(f"cli: {rp}/{name}.jpg is {got.shape}, "
+                                   f"expected {shapes.get(name, (th, tw))}")
+            worst = min(worst, _psnr(got, a))
+        pairs[os.path.basename(rp)] = {**t, "true_hw": [th, tw]}
+    return worst, pairs
+
+
+def cli_phase():
+    """The stitch CLI over demo_data/ on the card, into a temporary result
+    directory: fast_cv_g8 in bf16 (stitchax's precision) and the default
+    configuration in fp32, each through `out.setup` and the sweep that
+    `python -m stitchax_torch.out` runs (kernel launches counted over the
+    sweep), and the default configuration once more as the command itself
+    in a child process, in bf16."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from stitchax_torch import out as cli
+    from stitchax_torch.ops.kernels import library
+
+    demo = os.path.join(REPO, "demo_data")
+    tmp = tempfile.mkdtemp(prefix="stitchax_cli_")
+    res = {"phase": "cli", "data_root_path": "demo_data/", "configs": {}}
+    try:
+        for config, fp32 in ((FAST, False), (DEFAULT, True)):
+            argv = ["--inf_cfg", config, "--data_root_path", demo,
+                    "--ckpt_path", CKPT, "--result_dir", tmp]
+            if config == DEFAULT:
+                argv += ["--transref_ckpt", TRANSREF_CKPT]
+            if fp32:
+                argv.append("--fp32")
+            t0 = time.perf_counter()
+            save_root, logger, stitcher, jobs = cli.setup(cli.get_args(argv))
+            setup_s = time.perf_counter() - t0
+            library.reset_launches()
+            t0 = time.perf_counter()
+            results = list(stitcher.stitch_and_save_many(jobs))
+            sweep_s = time.perf_counter() - t0
+            launches = dict(library.launches)
+            logger.close()
+            if any(n == 0 for n in launches.values()):
+                raise RuntimeError(f"cli {config}: a kernel of the path was "
+                                   f"not launched: {launches}")
+            worst_db, pairs = _cli_files(stitcher, list(zip(jobs, results)))
+            entry = {"dtype": "float32" if fp32 else "bfloat16",
+                     "result_dir": os.path.basename(save_root),
+                     "setup_s": setup_s, "sweep_s": sweep_s,
+                     "s_per_pair": sweep_s / len(jobs), "pairs": pairs,
+                     "launches": launches, "jpeg_psnr_db_min": worst_db}
+            if worst_db < JPEG_LOSS_DB:
+                raise RuntimeError(f"cli {config}: a file decodes "
+                                   f"{worst_db} dB from its image")
+            if config == DEFAULT:
+                entry["vs_stitchax"] = _cli_default_vs_stitchax(
+                    dict(zip([os.path.basename(r[0]) for r in results],
+                             [r[1] for r in results]))["demo1"],
+                    stitcher.load_pair(jobs[0][0]))
+            res["configs"][config] = entry
+            del stitcher
+            torch.cuda.empty_cache()
+        # the command a user runs: the default configuration in bf16
+        cwd = os.path.join(tmp, "cmd")
+        os.makedirs(cwd)
+        env = dict(os.environ, PYTHONPATH=REPO)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "stitchax_torch.out", "--data_root_path",
+             demo, "--ckpt_path", CKPT, "--transref_ckpt", TRANSREF_CKPT,
+             "--result_dir", "out"], cwd=cwd, env=env, capture_output=True,
+            text=True, timeout=600)
+        cmd_s = time.perf_counter() - t0
+        root = os.path.join(cwd, "out",
+                            f"{DEFAULT}_g12x12_stitchax")
+        listing = {p: sorted(os.listdir(os.path.join(root, p)))
+                   for p in DEMO_PAIRS if os.path.isdir(os.path.join(root, p))}
+        want = sorted(f + ".jpg" for f in
+                      ("input1", "input2", "H_warp", "flow_warp", "warp1",
+                       "warp2", "mask1", "mask2", "ave_fusion",
+                       "composition", "learned_mask1", "learned_mask2"))
+        res["command"] = {"rc": run.returncode, "s": cmd_s,
+                          "files_per_pair": {p: len(v)
+                                             for p, v in listing.items()},
+                          "stderr_tail": run.stderr[-600:]}
+        if (run.returncode != 0 or sorted(listing) != list(DEMO_PAIRS)
+                or any(v != want for v in listing.values())
+                or not os.path.isfile(os.path.join(root, "config.txt"))):
+            emit(res)
+            raise RuntimeError("cli: python -m stitchax_torch.out failed or "
+                               "wrote other files")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["ok"] = True
+    emit(res)
+
+
+def _cli_default_vs_stitchax(out, pair):
+    """The default configuration's demo1 arrays (fp32, card) against
+    stitchax's committed ones, within CLI_DEFAULT_TOL."""
+    from stitchax_torch.run.stitcher import output_images
+
+    prefix = f"{DEFAULT}/demo1/"
+    with np.load(os.path.join(REPO, REFERENCE)) as data:
+        ref = {k[len(prefix):]: data[k] for k in data.files
+               if k.startswith(prefix)}
+    th, tw = (int(v) for v in ref["true_hw"])
+    if [int(v) for v in out["true_hw"]] != [th, tw]:
+        raise RuntimeError(f"cli default: canvas {out['true_hw']}, stitchax "
+                           f"{[th, tw]}")
+    files = output_images(out, *pair)
+    r = {k + "_psnr_db": _psnr(files[k], ref[k])
+         for k in ("warp2", "ave_fusion", "composition")}
+    lm = np.concatenate([np.abs(out[k] - ref[k]).ravel()
+                         for k in ("learned_mask1", "learned_mask2")])
+    r.update(learned_mask_mean_abs=float(lm.mean()),
+             learned_mask_max_abs=float(lm.max()),
+             mask1_moved_px=int((out["mask1"] != ref["mask1"][:th, :tw]).sum()))
+    misses = [k for k, t in CLI_DEFAULT_TOL.items()
+              if (r[k] < t if k.endswith("_db") else r[k] > t)]
+    r["tol"], r["ok"] = CLI_DEFAULT_TOL, not misses
+    if misses:
+        emit({"phase": "cli", "vs_stitchax": r})
+        raise RuntimeError(f"cli default vs stitchax: outside tolerance: "
+                           f"{misses}")
+    return r
+
+
+def evaluate_phase():
+    """`validate_with_model` on the committed 12-pair split, batch 12, fp32
+    nets (TF32 off) on the card, against stitchax's committed evaluation
+    (EVAL_REFERENCE). Kernel launches counted over the evaluation; ms per
+    batch of the alignment forward, warm; peak memory; the host's read
+    (decode + resize) per image."""
+    import torch
+
+    from stitchax_torch.align.adapter import AlignConfig
+    from stitchax_torch.data.udis import PrefetchLoader, UDISDataset
+    from stitchax_torch.evaluate import (load_models, make_eval_step,
+                                         validate_with_model)
+    from stitchax_torch.ops.kernels import library
+
+    models = load_models(CKPT, "cuda")
+    ds = UDISDataset(os.path.join(REPO, SYNTH), size=(512, 512))
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    read_ms = (time.perf_counter() - t0) * 1e3 / (2 * len(ds))
+    align_cfg = AlignConfig()
+    step = make_eval_step(models, align_cfg)
+    outs, times = [], []
+
+    def recording_step(a, b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        w, v = step(a, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        outs.append((w.cpu().numpy(), v.cpu().numpy(), a, b))
+        return w, v
+
+    per_pair = []
+    library.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = validate_with_model({}, PrefetchLoader(
+        ds, batch_size=EVAL_BATCH, num_workers=12), models, align_cfg,
+        eval_step=recording_step, per_pair=per_pair)
+    total_s = time.perf_counter() - t0
+    launches = dict(library.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_batches = len(outs)
+    want = {k: n * n_batches for k, n in EXPECT_EVAL_LAUNCHES.items()}
+    if launches != want:
+        raise RuntimeError(f"evaluate: kernel launches {launches}, expected "
+                           f"{want}")
+    a, b = outs[0][2], outs[0][3]
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(a, b)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t) * 1e3)
+    warped = np.concatenate([np.clip(w, 0, 255).astype(np.uint8)
+                             for w, _, _, _ in outs])
+    valid = np.concatenate([v.astype(np.uint8) for _, v, _, _ in outs])
+    res = {"phase": "evaluate", "pairs": len(per_pair), "batch": EVAL_BATCH,
+           "dtype": "float32", "image_size": [512, 512],
+           "reference": EVAL_REFERENCE, "report": report,
+           "first_batch_ms": times[0], "warm_batch_ms": warm,
+           "pairs_per_s_warm": EVAL_BATCH / (min(warm) / 1e3),
+           "total_s": total_s, "read_ms_per_image": read_ms,
+           "peak_mem_gib": peak, "launches_per_batch": {
+               k: n / n_batches for k, n in launches.items()}}
+    if (sorted(report) != sorted(EVAL_REPORT_KEYS)
+            or report["num_pairs"] != len(ds)):
+        emit(res)
+        raise RuntimeError("evaluate: the report's structure is not "
+                           "stitchax's")
+    res.update(_eval_vs_stitchax(per_pair, report, warped, valid))
+    res["per_pair"] = [list(p) for p in per_pair]
+    _check(res, EVAL_STITCHAX_TOL, "evaluate")
+
+
+def _eval_vs_stitchax(per_pair, report, warped, valid):
+    """The worst differences from stitchax's evaluation (EVAL_REFERENCE)."""
+    with np.load(os.path.join(REPO, EVAL_REFERENCE)) as ref:
+        names = [str(n) for n in ref["names"]]
+        if [p[0] for p in per_pair] != names:
+            raise RuntimeError("evaluate: other pairs than stitchax's")
+        got_p = np.array([p[1] for p in per_pair])
+        got_s = np.array([p[2] for p in per_pair])
+        res = {"psnr_abs_diff": float(np.abs(got_p - ref["psnr"]).max()),
+               "ssim_abs_diff": float(np.abs(got_s - ref["ssim"]).max()),
+               "report_psnr_abs_diff": max(
+                   abs(report[k] - float(ref[f"report/{k}"]))
+                   for k in EVAL_REPORT_KEYS if "psnr" in k),
+               "report_ssim_abs_diff": max(
+                   abs(report[k] - float(ref[f"report/{k}"]))
+                   for k in EVAL_REPORT_KEYS if "ssim" in k)}
+        moved = level = 0.0
+        for key in ref.files:
+            if not key.startswith("valid/"):
+                continue
+            i = int(key.split("/")[1])
+            v, w = ref[key], ref[f"warped/{i}"]
+            both = ((valid[i] == 1) & (v == 1))[..., 0]
+            moved = max(moved, float(np.mean(valid[i] != v)))
+            d = np.abs(warped[i].astype(int) - w.astype(int))
+            level = max(level, float(d[both].mean()))
+    res.update(valid_moved_share=moved, warped_mean_level=level)
+    return res
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -810,20 +1354,38 @@ def _busy_us(intervals) -> float:
 
 
 def profile_phase(img1, img2, trace_path=None, config=FAST) -> None:
+    """One warm bf16 stitch of the configuration under torch.profiler, or
+    with config "evaluate" one warm batch of the evaluation (the committed
+    split's 12 pairs at 512^2, fp32 nets)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from stitchax_torch.run.stitcher import Stitcher
+    if config == "evaluate":
+        from stitchax_torch.align.adapter import AlignConfig
+        from stitchax_torch.data.udis import PrefetchLoader, UDISDataset
+        from stitchax_torch.evaluate import load_models, make_eval_step
 
-    models = build_models(torch.bfloat16, "cuda", config)
-    stitcher = Stitcher(models, device="cuda", config=config)
-    stitcher.stitch(img1, img2)                          # warm-up
+        step = make_eval_step(load_models(CKPT, "cuda"), AlignConfig())
+        batch = next(iter(PrefetchLoader(
+            UDISDataset(os.path.join(REPO, SYNTH), size=(512, 512)),
+            batch_size=EVAL_BATCH)))
+        a, b = (torch.from_numpy(batch[k]).cuda()
+                for k in ("image1", "image2"))
+        run = lambda timings: step(a, b)
+    else:
+        from stitchax_torch.run.stitcher import Stitcher
+
+        stitcher = Stitcher(build_models(torch.bfloat16, "cuda", config),
+                            device="cuda", config=config)
+        run = lambda timings: stitcher.stitch(img1, img2, timings=timings)
+    run({})                                              # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         timings = {}
-        stitcher.stitch(img1, img2, timings=timings)
+        run(timings)
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -834,14 +1396,22 @@ def profile_phase(img1, img2, trace_path=None, config=FAST) -> None:
                        getattr(a, "self_cuda_time_total", 0.0))
 
     top = sorted(prof.key_averages(), key=lambda a: -self_device_us(a))[:25]
+    # the operators, with their input shapes, that own the most device time
+    ops = sorted((a for a in prof.key_averages(group_by_input_shape=True)
+                  if a.key.startswith("aten::")),
+                 key=lambda a: -self_device_us(a))
+    top_ops = [{"name": a.key, "shapes": str(a.input_shapes)[:200],
+                "count": a.count, "ms": self_device_us(a) / 1e3}
+               for a in ops[:10]]
     emit({"phase": "profile", "config": config, "weights": WEIGHTS,
-          "stitch_ms": wall_us / 1e3,
+          "wall_ms": wall_us / 1e3,
           **timings, "device_events": len(dev),
           "device_busy_ms": busy / 1e3 if dev else None,
           "device_busy_share": busy / wall_us if dev else None,
           "top_self_device_ms": [
               {"name": a.key[:120], "count": a.count,
-               "ms": self_device_us(a) / 1e3} for a in top]})
+               "ms": self_device_us(a) / 1e3} for a in top],
+          "top_ops_device_ms": top_ops})
     if trace_path:
         prof.export_chrome_trace(trace_path)
 
@@ -885,9 +1455,24 @@ def main() -> int:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")
 
+    eval_rows, eval_detail = eval_kernel_rows()
+    bad = sorted({d["kernel"] for d in eval_detail
+                  if not d["max_abs_err"] <= d["tol"]})
+    emit({"phase": "kernels_evaluation", "card": smi, "calls": eval_detail,
+          "per_batch": eval_rows, "ok": not bad})
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions at "
+                           f"the evaluation's shapes: {bad}")
+    for row in rows:
+        if row["name"] in eval_rows:
+            row["evaluation"] = eval_rows[row["name"]]
+
     stitch_vs_cpu_phase(img1, img2)
     stitch_vs_cpu_default_phase(img1, img2)
     stitch_vs_stitchax_phase()
+    jpeg_phase()
+    cli_phase()
+    evaluate_phase()
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -62,6 +62,58 @@ def canvas_box(H: torch.Tensor, img_h: int, img_w: int) -> torch.Tensor:
     return torch.stack([width_min, height_min, width_max, height_max], -1)
 
 
+def _normalized(H: torch.Tensor, h: float, w: float) -> torch.Tensor:
+    """M^-1 @ H @ M for a square (h, w) frame on both sides."""
+    M = scale_matrix(h, w, device=H.device, dtype=H.dtype)
+    return torch.linalg.inv(M) @ H @ M
+
+
+def train_eval_forward(homo_fn: Callable, flow_fn: Callable,
+                       input1: torch.Tensor, input2: torch.Tensor,
+                       cfg: AlignConfig) -> Dict[str, Any]:
+    """The fixed-resolution alignment forward of training and evaluation
+    (stitchax/align/adapter.py:71): the homography at coordinates / 8, the
+    warp of img2 and its coverage (ones) into img1's frame, the forward
+    flow, and with the consistency mask a second flow call backwards whose
+    range-map occlusion (>= 0.5) masks the warp.
+
+    homo_fn(a, b) -> (B, 8) offsets on [-1, 1] inputs; flow_fn(a, b) ->
+    ([flows], lr) on [0, 255] inputs."""
+    B, img_h, img_w, _ = input1.shape
+    offsets = homo_fn(input1 / 127.5 - 1.0, input2 / 127.5 - 1.0)
+    H = predict_homography_matrix(offsets, img_h, img_w, scale_div=8.0)
+    H_mat = _normalized(H, img_h / 8.0, img_w / 8.0)
+    H_inv_mat = _normalized(torch.linalg.inv(H), img_h / 8.0, img_w / 8.0)
+
+    ones3 = torch.ones_like(input2)
+    output_H = homography_warp_b(torch.cat([input2, ones3], -1), H_mat,
+                                 img_h, img_w)
+    output_H_inv = homography_warp_b(torch.cat([input1, ones3], -1),
+                                     H_inv_mat, img_h, img_w)
+
+    warp2 = output_H[..., 0:3]
+    flow_predictions, _ = flow_fn(input1, warp2)
+    final_flow = flow_predictions[-1]
+
+    final_warp_output = flow_warp_b(output_H, final_flow)
+    overlap = (final_warp_output[..., 3:6].mean(-1) < 0.9).to(input1.dtype)
+
+    out = dict(output_H=output_H, output_H_inv=output_H_inv,
+               flow_predictions=flow_predictions, H=H)
+    if cfg.use_fb_consistency_mask:
+        back_predictions, _ = flow_fn(warp2, input1)
+        occ = compute_occlusion_b(final_flow, back_predictions[-1],
+                                  cfg.occlusion_estimation,
+                                  occlusion_are_zeros=True,
+                                  boundaries_occluded=True)
+        occ = (occ >= 0.5).to(input1.dtype)
+        final_warp_output = final_warp_output * occ
+        out["origin_occlusion_mask"] = occ[..., 0]
+
+    out.update(final_warp_output=final_warp_output, overlap=overlap)
+    return out
+
+
 def stitch_model_step(homo_fn: Callable, flow_fn: Callable,
                       input1: torch.Tensor, input2: torch.Tensor,
                       cfg: AlignConfig,

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from .grid import coords_grid
-from .sampling import grid_sample_b, interpolate_bilinear_b
+from .sampling import bilinear_gather_b, interpolate_bilinear_b
 
 
 def flow_to_warp(flow: torch.Tensor) -> torch.Tensor:
@@ -19,12 +19,11 @@ def flow_to_warp(flow: torch.Tensor) -> torch.Tensor:
 
 
 def flow_warp_b(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """out(p) = x(p + flow(p)); grid_sample parity, zeros padding."""
-    H, W = x.shape[1], x.shape[2]
+    """out(p) = x(p + flow(p)); grid_sample parity (align_corners), zeros
+    padding. stitchax maps p + flow to [-1, 1] and back; XLA cancels that
+    round trip under jit, so the samples are taken at p + flow itself."""
     coords = flow_to_warp(flow)
-    gx = 2.0 * coords[..., 0] / max(W - 1, 1) - 1.0
-    gy = 2.0 * coords[..., 1] / max(H - 1, 1) - 1.0
-    return grid_sample_b(x, torch.stack([gx, gy], -1))
+    return bilinear_gather_b(x, coords[..., 0], coords[..., 1])
 
 
 def resize_flow_b(flow: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:

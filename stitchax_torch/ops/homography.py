@@ -6,7 +6,14 @@ Hartley-normalized points, solved with a batched linear solve.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+# sqrt(2) and its reciprocal as fp32 constants (jnp.sqrt(2.0) and XLA's
+# folded 1 / sqrt(2))
+SQRT2 = float(np.float32(np.sqrt(2.0)))
+INV_SQRT2 = float(np.float32(1.0) / np.float32(SQRT2))
 
 
 def dlt_solve(src_p: torch.Tensor, dst_p: torch.Tensor,
@@ -15,12 +22,14 @@ def dlt_solve(src_p: torch.Tensor, dst_p: torch.Tensor,
     if normalize:
         def norm_T(p):
             c = p.mean(1, keepdim=True)
-            d = torch.sqrt(((p - c) ** 2).sum(-1)).mean(1)
-            s = (2.0 ** 0.5) / torch.clamp(d, min=1e-8)
-            return c[:, 0], s
+            d = torch.clamp(torch.sqrt(((p - c) ** 2).sum(-1)).mean(1),
+                            min=1e-8)
+            # a true division (a python number over a tensor would be
+            # the tensor's reciprocal times the number in torch)
+            return c[:, 0], torch.full_like(d, SQRT2) / d, d
 
-        c_s, s_s = norm_T(src_p)
-        c_d, s_d = norm_T(dst_p)
+        c_s, s_s, _ = norm_T(src_p)
+        c_d, s_d, d_d = norm_T(dst_p)
         src_n = (src_p - c_s[:, None]) * s_s[:, None, None]
         dst_n = (dst_p - c_d[:, None]) * s_d[:, None, None]
         Hn = dlt_solve(src_n, dst_n, normalize=False)
@@ -29,9 +38,11 @@ def dlt_solve(src_p: torch.Tensor, dst_p: torch.Tensor,
             torch.stack([s_s, zeros, -s_s * c_s[:, 0]], -1),
             torch.stack([zeros, s_s, -s_s * c_s[:, 1]], -1),
             torch.stack([zeros, zeros, ones], -1)], 1)
+        # 1 / s_d as XLA folds it under jit: d times the rounded 1/sqrt(2)
+        inv_s_d = d_d * INV_SQRT2
         T_dst_inv = torch.stack([
-            torch.stack([1.0 / s_d, zeros, c_d[:, 0]], -1),
-            torch.stack([zeros, 1.0 / s_d, c_d[:, 1]], -1),
+            torch.stack([inv_s_d, zeros, c_d[:, 0]], -1),
+            torch.stack([zeros, inv_s_d, c_d[:, 1]], -1),
             torch.stack([zeros, zeros, ones], -1)], 1)
         H = T_dst_inv @ Hn @ T_src
         return H / H[:, 2:3, 2:3]

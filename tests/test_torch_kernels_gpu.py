@@ -198,3 +198,36 @@ def test_window_kernel_refuses_misaligned_bf16(cuda):
     b = torch.zeros(49, 64, device=cuda).bfloat16()
     with pytest.raises(ValueError, match="aligned"):
         twa.window_attention(qx, kx, vx, b, b, b[:1], heads=2, ws=7)
+
+
+# the evaluation's shapes (stitchax_torch.evaluate, batch 12 at 512^2, fp32
+# nets): K1 at the context / feature encoders (B) and the cost perceiver
+# (8B), K3 at P = B x 64 x 64 maps of 64 x 64. The kernels form their
+# offsets in 64 bits and the grids stay inside their limits (K1 grid.z = B
+# <= 65535; K3 P x 64 x 64 = 201M elements, blocks = P / 24); B = 24 as
+# well, were both flow directions batched into one call
+EVAL_GSA_CASES = [(12, 128 * 128, 256, 128, 4), (12, 64 * 64, 256, 256, 8),
+                  (96, 64 * 64, 256, 128, 8), (192, 64 * 64, 256, 128, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M,C,heads", EVAL_GSA_CASES)
+def test_gsa_kernel_at_evaluation_shapes(cuda, B, N, M, C, heads):
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g).to(cuda)
+               for s in ((B, N, C), (B, M, C), (B, M, C)))
+    got = tgsa.gsa_attention(q, k, v, heads=heads)
+    want = tgsa.gsa_attention_plain(q, k, v, heads=heads)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [12, 24])
+def test_cost_lookup_kernel_at_evaluation_shapes(cuda, B):
+    g = torch.Generator().manual_seed(2)
+    P = B * 64 * 64
+    cm = torch.randn(P, 64, 64, generator=g).to(cuda)
+    coords = (torch.rand(P, 2, generator=g) * 76 - 6).to(cuda)
+    got = tcl.cost_lookup(cm, coords, 4)
+    want = tcl.cost_lookup_plain(cm, coords, 4)
+    assert torch.equal(got, want)

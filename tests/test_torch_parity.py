@@ -9,6 +9,13 @@ exact RGB (`STITCHAX_PACK=rgb`) and every canvas fetched from the device
 
     python tests/test_torch_parity.py --write
 
+The file also holds stitchax's default configuration
+(all_img1_with_inpaint_g12_transRef: TransRef inpainter, the composition
+net, trained weights, fp32) on demo1, under
+"all_img1_with_inpaint_g12_transRef/demo1/"; the slow
+`test_default_config_stitch_matches_stitchax` holds the port to it, and
+`chip_smoke.py`'s `cli` phase holds the card's stitch CLI to it.
+
 The tier-1 test feeds the committed alignment (H, flow, occlusion mask,
 canvas box) into the port's render, TPS and mix on the CPU and holds mask1
 bit-equal to stitchax's and warp2 / ave_fusion within one uint8 level. The
@@ -26,8 +33,11 @@ import pytest
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 REF = os.path.join(REPO, "tests", "torch_reference", "demo_stitchax_fp32.npz")
 CKPT = os.path.join(REPO, "results", "ckpt_r05_bf16.npz")
+TRANSREF = os.path.join(REPO, "results", "transref_ckpt_r05_bf16.msgpack")
 PAIRS = ("demo1", "demo2")
 CONFIG = "fast_cv_g8"
+# the default configuration's reference: demo1 only
+DEFAULT, DEFAULT_PAIR = "all_img1_with_inpaint_g12_transRef", "demo1"
 # keys of each pair in the npz besides the decoded input images img1 / img2
 # (uint8; the card's machine has no JPEG decoder); the uint8 canvases are
 # cropped to the true canvas as stitchax's Stitcher.stitch returns them, the
@@ -43,33 +53,45 @@ def load_pair(name):
             for f in ("input1.jpg", "input2.jpg")]
 
 
-def stitchax_stitcher():
-    """stitchax's Stitcher as out.py builds it for fast_cv_g8, with the
-    trained weights and its homography and flow nets called in fp32."""
+def stitchax_stitcher(config=CONFIG):
+    """stitchax's Stitcher as out.py builds it for `config`, with the
+    trained weights and its homography and flow nets called in fp32; for
+    the default configuration also the trained composition net and
+    TransRef (fp32, as `stitchax_default_reference` calls them)."""
     os.environ["STITCHAX_PACK"] = "rgb"
     os.environ["STITCHAX_FETCH_ALL"] = "1"
+    import importlib
+
     import jax
     import jax.numpy as jnp
 
-    import inf_configs.fast_cv_g8 as inf
     from stitchax.align.adapter import AlignConfig
+    from stitchax.compose.inpainters import TransRefInpainter
     from stitchax.convert import load_params_npz
-    from stitchax.models import FlowFormer, UDIS2HomographyNet
+    from stitchax.models import CompositionNet, FlowFormer, UDIS2HomographyNet
     from stitchax.models.flowformer import FlowFormerConfig
+    from stitchax.models.transref import TransRefBase
     from stitchax.run.stitcher import Stitcher, StitchModels
     from stitchax.tps.pipeline import TPSConfig
+    from stitchax_torch import convert
 
+    inf = importlib.import_module(f"inf_configs.{config}")
+    icfg = inf.get_infernce_config()
     flow_model = FlowFormer(FlowFormerConfig(upsample_all=False))
     homo_model = UDIS2HomographyNet()
     x = jnp.zeros((1, 512, 512, 3), jnp.float32)
     key = jax.random.PRNGKey(0)
     tpl = {"flow": jax.eval_shape(lambda: flow_model.init(key, x, x)),
            "homo": jax.eval_shape(lambda: homo_model.init(key, x, x))}
+    comp_model = None
+    if icfg["use_composition"]:
+        comp_model = CompositionNet()
+        m = jnp.zeros((1, 512, 512, 1), jnp.float32)
+        tpl["comp"] = jax.eval_shape(lambda: comp_model.init(key, x, x, m, m))
     tpl = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), tpl)
     params = load_params_npz(CKPT, tpl)
     models = StitchModels(flow_model, params["flow"], homo_model,
-                          params["homo"], None, None)
-    icfg = inf.get_infernce_config()
+                          params["homo"], comp_model, params.get("comp"))
     c = inf.get_tps_pipline_config(icfg)
     tps_cfg = TPSConfig(
         grid_h=c["grid_h"], grid_w=c["grid_w"], pad_num=c["pad_num"],
@@ -93,7 +115,37 @@ def stitchax_stitcher():
     # Stitcher takes them, in fp32
     st._flow_pair_fn = lambda a, b: flow_model.apply(
         params["flow"], a, b, method=FlowFormer.bidirectional)
+    if c["inpainter"] == "transref_inpainter":
+        tr = jax.tree_util.tree_map(jnp.asarray,
+                                    convert.load_flax_msgpack(TRANSREF))
+        st.inpainter = TransRefInpainter(
+            apply_fn=lambda d, m, r: TransRefBase().apply(tr, d, m, r))
     return st
+
+
+def stitchax_default_reference(st, img1, img2):
+    """One pair through stitchax's Stitcher for the default configuration
+    (`stitchax_stitcher(DEFAULT)`), its composition net called in fp32:
+    the canvases before its uint8 pack, cropped to the true canvas, with
+    the images as the exact-RGB pack rounds them; mask1 at the bucketed
+    canvas size."""
+    import stitchax.utils.precision as jprec
+
+    saved = jprec.bf16_call
+    jprec.bf16_call = lambda fn, params, *args: fn(params, *args)
+    try:
+        res = st._stitch_device(img1, img2)["result"]
+    finally:
+        jprec.bf16_call = saved
+    th, tw = res["out_h"], res["out_w"]
+    crop = lambda v: np.asarray(v)[:th, :tw]
+    out = {k: _u8(crop(res[k])) for k in ("warp2", "ave_fusion",
+                                          "composition")}
+    out.update({k: crop(res[k]) for k in ("learned_mask1", "learned_mask2")})
+    out.update(mask1=np.asarray(res["mask1"]),
+               canvas_hw=np.array(res["mask1"].shape[:2]),
+               true_hw=np.array([th, tw]))
+    return out
 
 
 def stitchax_reference(st, img1, img2):
@@ -143,6 +195,10 @@ def write_reference(path=REF):
     for name in PAIRS:
         ref = stitchax_reference(st, *load_pair(name))
         arrays.update({f"{name}/{k}": v for k, v in ref.items()})
+    ref = stitchax_default_reference(stitchax_stitcher(DEFAULT),
+                                     *load_pair(DEFAULT_PAIR))
+    arrays.update({f"{DEFAULT}/{DEFAULT_PAIR}/{k}": v
+                   for k, v in ref.items()})
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **arrays)
     return path
@@ -393,6 +449,65 @@ def test_port_stitch_matches_stitchax_from_its_homography(trained, name):
     got = _port_stitch_fp32(models, img1, img2,
                             homo_fn=lambda a, b: offsets)
     _end_to_end_checks(name, got, (_ref(name),))
+
+
+# the port's default-configuration stitch of demo1 in fp32 on the CPU
+# against stitchax's (`stitchax_default_reference`): PSNR on the uint8
+# canvases, the learned masks' mean |diff|, mask1 values that differ. Read
+# 83.62 / 83.79 / 83.64 dB, 8.3e-7 (max 3.0e-3), 0; limits about 20x in
+# squared error and 12x in the masks' mean
+DEFAULT_TOL = {"warp2_psnr_db": 70.0, "ave_fusion_psnr_db": 70.0,
+               "composition_psnr_db": 70.0, "learned_mask_mean_abs": 1e-5,
+               "mask1_moved_px": 0}
+
+
+def default_config_checks(got, pair, ref):
+    """{metric: value} of the port's default-configuration stitch of
+    `pair` (numpy outputs of `Stitcher.stitch`) against stitchax's
+    committed ones."""
+    from stitchax_torch.run.stitcher import output_images
+
+    th, tw = (int(v) for v in ref["true_hw"])
+    assert [int(v) for v in got["true_hw"]] == [th, tw]
+    assert [int(v) for v in got["canvas_hw"]] == list(ref["canvas_hw"])
+    files = output_images(got, *pair)
+    res = {f"{k}_psnr_db": _psnr(files[k], ref[k])
+           for k in ("warp2", "ave_fusion", "composition")}
+    lm = np.concatenate([np.abs(got[k] - ref[k]).ravel()
+                         for k in ("learned_mask1", "learned_mask2")])
+    res.update(learned_mask_mean_abs=float(lm.mean()),
+               learned_mask_max_abs=float(lm.max()),
+               mask1_moved_px=int((got["mask1"]
+                                   != ref["mask1"][:th, :tw]).sum()))
+    return res
+
+
+@pytest.mark.slow
+def test_default_config_stitch_matches_stitchax():
+    """The port's Stitcher with the default configuration (trained homo,
+    flow, comp and TransRef weights, fp32, CPU) on demo1 at its native
+    384x448, against stitchax's jitted Stitcher's committed outputs, within
+    DEFAULT_TOL."""
+    import torch
+
+    from stitchax_torch.run.stitcher import Stitcher, StitchModels
+
+    for path in (CKPT, TRANSREF):
+        if not os.path.isfile(path):
+            pytest.skip(f"{path} is not in this checkout")
+    models = StitchModels.from_npz(CKPT, "cpu", torch.float32, DEFAULT,
+                                   transref=TRANSREF)
+    pair = load_pair(DEFAULT_PAIR)
+    got = Stitcher(models, device="cpu", config=DEFAULT).stitch(*pair)
+    with np.load(REF) as d:
+        prefix = f"{DEFAULT}/{DEFAULT_PAIR}/"
+        ref = {k[len(prefix):]: d[k] for k in d.files
+               if k.startswith(prefix)}
+    res = default_config_checks(got, pair, ref)
+    print(res)
+    for k, lim in DEFAULT_TOL.items():
+        assert (res[k] >= lim if k.endswith("_db") else res[k] <= lim), \
+            (k, res[k], lim)
 
 
 if __name__ == "__main__":
