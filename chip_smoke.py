@@ -16,6 +16,11 @@ Phases, each printing one JSON line before the next begins:
                          `all_img1_with_inpaint_g12_transRef` (TransRef
                          inpainter, grid 12, the composition net), which
                          also times the inpainter and the composition
+  stitch_diffusion       the same with `inpaint_all_area_g12_diffusion`
+                         (every hole to the SD + ControlNet inpainter of
+                         results/sd_ckpt_r05.pt, in fp32, beside bf16
+                         nets): also ms per DDIM step, in the stitch and
+                         alone, and the VAE's encode and decode
   kernels                each kernel against its plain PyTorch version at
                          the shapes the stitches gave it: max |diff|, kernel
                          / plain / library ms by CUDA events, the kernel's
@@ -34,18 +39,30 @@ Phases, each printing one JSON line before the next begins:
                          (its jitted Stitcher on the CPU), committed in
                          tests/torch_reference/demo_stitchax_fp32.npz with
                          the decoded input images
+  sd_vs_stitchax         the SD inpainter alone, fp32 on the card, on the
+                         input and hole stitchax's inpainter got in its
+                         demo1 stitch, and the diffusion configuration's
+                         demo1 stitch in fp32, against stitchax's outputs
+                         (tests/torch_reference/sd_stitchax_fp32.npz)
   jpeg                   the port's JPEG codec on the card's host: the demo
                          inputs decode to Pillow's pixels and encode to
                          Pillow's bytes; ms per decode and encode
   cli                    the stitch CLI (python -m stitchax_torch.out) over
                          demo_data/ into a temporary directory: fast_cv_g8
-                         in bf16 and the default configuration in fp32
+                         in bf16, the default configuration in fp32 and
+                         the diffusion configuration in bf16 (SD fp32)
                          through its sweep (files, value path, launches,
                          s per pair; demo1's default-configuration arrays
                          against stitchax's), then the command itself
   evaluate               validate_with_model on the committed 12-pair split
                          (tests/torch_reference/udis_synth), batch 12, fp32,
                          against stitchax's evaluation of it
+  sd15_widths            the port's UNet, ControlNet and VAE at the SD-1.5
+                         widths (320/640/1280/1280, context 768, 8 heads),
+                         seeded weights: 3 DDIM steps and a VAE round trip
+                         at the 512x768 canvas in fp32 (TF32 off), ms per
+                         step, peak memory, finite; not held to stitchax
+                         (no such weights in the repository)
 
 Then the kernel table (one JSON object), the nvidia-smi line, and the final
 `{"ok": true, "device": ...}` line. Any failed phase exits non-zero without
@@ -76,7 +93,13 @@ WEIGHTS = "results/ckpt_r05_bf16.npz"
 CKPT = os.path.join(REPO, WEIGHTS)
 TRANSREF_WEIGHTS = "results/transref_ckpt_r05_bf16.msgpack"
 TRANSREF_CKPT = os.path.join(REPO, TRANSREF_WEIGHTS)
+SD_WEIGHTS = "results/sd_ckpt_r05.pt"
+SD_CKPT = os.path.join(REPO, SD_WEIGHTS)
 FAST, DEFAULT = "fast_cv_g8", "all_img1_with_inpaint_g12_transRef"
+DIFFUSION = "inpaint_all_area_g12_diffusion"
+PHASE = {FAST: "stitch", DEFAULT: "stitch_default",
+         DIFFUSION: "stitch_diffusion"}
+SD_REFERENCE = "tests/torch_reference/sd_stitchax_fp32.npz"
 REFERENCE = "tests/torch_reference/demo_stitchax_fp32.npz"
 DEMO_PAIRS = ("demo1", "demo2")
 SEED = 0
@@ -306,10 +329,14 @@ WINDOW_CALLS = [(2, 128, 128, 128, 4, True, 1), (2, 64, 64, 256, 8, True, 1),
                 (1, 128, 128, 128, 4, True, 2), (1, 64, 64, 256, 8, True, 2),
                 (16, 64, 64, 128, 8, False, 3)]
 WINDOW_WS = 7
-# launches per stitch of either configuration (same 512^2 align); the TPS
-# grid (K2) launches at least once
-EXPECT_LAUNCHES = {"gsa_attention": 9, "cost_lookup": 12,
-                   "window_attention": 9}
+# launches per stitch of each configuration: all three run the same 512^2
+# align, where K1, K3 and K4 (the twins encoders' LSA blocks and the cost
+# perceiver's local blocks) launch; the inpainters and the composition net
+# launch none. The TPS grid (K2) launches at least once
+ALIGN_LAUNCHES = {"gsa_attention": 9, "cost_lookup": 12,
+                  "window_attention": 9}
+EXPECT_LAUNCHES = {FAST: ALIGN_LAUNCHES, DEFAULT: ALIGN_LAUNCHES,
+                   DIFFUSION: ALIGN_LAUNCHES}
 
 # the evaluation: `validate_with_model` over the committed 12-pair split
 # (tests/test_torch_eval.py) at 512^2, one batch of 12, fp32 nets. Each
@@ -362,6 +389,19 @@ JPEG_LOSS_DB = 30.0
 CLI_DEFAULT_TOL = {"warp2_psnr_db": 70.0, "ave_fusion_psnr_db": 70.0,
                    "composition_psnr_db": 70.0,
                    "learned_mask_mean_abs": 1e-5, "mask1_moved_px": 0}
+# the diffusion configuration in fp32 on the card (TF32 off) against
+# stitchax's (SD_REFERENCE): the SD inpainter alone on stitchax's own input
+# and hole (512x768, 18 DDIM steps), then the demo1 stitch. Equalities stay
+# equalities (an H100 read them equal); the PSNR limits sit 10 dB (10x in
+# squared error) under what an H100 read first, 127.40 dB for the
+# inpainter, 80.73 / 81.57 / 80.67 dB for warp2 / ave_fusion / composition,
+# the learned masks' mean |diff| 10x of its 1.00e-6 (PERF.md section 2)
+SD_STITCHAX_TOL = {"inpaint_outside_moved_px": 0,
+                   "inpaint_hole_psnr_db": 117.0,
+                   "canvas_moved_px": 0.0, "mask1_moved_px": 0,
+                   "hole_moved_px": 0, "warp2_psnr_db": 70.0,
+                   "ave_fusion_psnr_db": 71.0, "composition_psnr_db": 70.0,
+                   "learned_mask_mean_abs": 1e-5}
 # sha256 of Pillow's JPEG (quality 75) of each decoded demo input: the
 # encoder must write these bytes on the card's host too
 DEMO_JPEG_SHA256 = {
@@ -472,9 +512,11 @@ def kernel_rows(tps_inputs, launches):
     """Hold each kernel against its plain version on the card at the
     main-path shapes and time it. `tps_inputs` maps each configuration to
     the (ctrl, kernel_w, affine_w, out_h, out_w) its stitch gave K2; the
-    K2 row is the default configuration's. `launches` are the default
-    configuration's per stitch. Returns the kernel table rows and one entry
-    per call shape, each with its tolerance."""
+    K2 row is the default configuration's. `launches` maps each
+    configuration to its launches per stitch: a row's "launches" are the
+    default configuration's, "launches_by_config" every configuration's.
+    Returns the kernel table rows and one entry per call shape, each with
+    its tolerance."""
     import torch
     import torch.nn.functional as F
 
@@ -538,7 +580,7 @@ def kernel_rows(tps_inputs, launches):
     rows.append({"name": "gsa_attention", "route": "cuda",
                  "source": "stitchax_torch/csrc/gsa_attention.cu",
                  "replaces": "stitchax/ops/pallas/gsa_attention.py:51",
-                 "launches": launches["gsa_attention"],
+                 "launches": launches[DEFAULT]["gsa_attention"],
                  "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                  "plain_ms": plain, "bound_ms": bnd,
                  "bound_by": max(bound_share, key=bound_share.get),
@@ -601,7 +643,8 @@ def kernel_rows(tps_inputs, launches):
     rows.append({"name": "cost_lookup", "route": "cuda",
                  "source": "stitchax_torch/csrc/cost_lookup.cu",
                  "replaces": "stitchax/ops/pallas/cost_lookup.py:121",
-                 "launches": launches["cost_lookup"], "max_abs_err": e,
+                 "launches": launches[DEFAULT]["cost_lookup"],
+                 "max_abs_err": e,
                  "ms": DECODER_ITERS * t_k,
                  "device_ms": _add(0.0, d_k, DECODER_ITERS),
                  "plain_ms": DECODER_ITERS * t_p,
@@ -610,6 +653,7 @@ def kernel_rows(tps_inputs, launches):
                  "library_device_ms": _add(0.0, d_l, DECODER_ITERS)})
 
     # K2, at each configuration's canvas and control points
+    k2 = {}
     for config, (ctrl, kw, aw, out_h, out_w) in tps_inputs.items():
         N = ctrl.shape[0]
         got = tps_grid.tps_grid(ctrl, kw, aw, out_h, out_w)
@@ -623,23 +667,30 @@ def kernel_rows(tps_inputs, launches):
         d_k = device_ms(lambda: tps_grid.tps_grid(ctrl, kw, aw, out_h,
                                                   out_w))
         b, by, unit = tps_bound_ms(N, out_h, out_w)
-        detail.append({"kernel": "tps_grid", "config": config, "N": N,
-                       "out_h": out_h, "out_w": out_w, "calls": 1,
-                       "max_abs_err": e, "tol": TOL["tps_grid"], "ms": t_k,
-                       "device_ms": d_k, "plain_ms": t_p, "bound_ms": b,
-                       "bound_by": by, "bound_unit": unit})
+        k2[config] = {"kernel": "tps_grid", "config": config, "N": N,
+                      "out_h": out_h, "out_w": out_w, "calls": 1,
+                      "max_abs_err": e, "tol": TOL["tps_grid"], "ms": t_k,
+                      "device_ms": d_k, "plain_ms": t_p, "bound_ms": b,
+                      "bound_by": by, "bound_unit": unit}
+        detail.append(k2[config])
+    d = k2[DEFAULT]
     rows.append({"name": "tps_grid", "route": "cuda",
                  "source": "stitchax_torch/csrc/tps_grid.cu",
                  "replaces": "stitchax/ops/pallas/tps_kernel.py:53",
-                 "launches": launches["tps_grid"], "max_abs_err": e,
-                 "ms": t_k, "device_ms": d_k, "plain_ms": t_p,
-                 "bound_ms": b, "bound_by": by, "bound_unit": unit,
+                 "launches": launches[DEFAULT]["tps_grid"],
+                 "max_abs_err": max(v["max_abs_err"] for v in k2.values()),
+                 "ms": d["ms"], "device_ms": d["device_ms"],
+                 "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                 "bound_by": d["bound_by"], "bound_unit": d["bound_unit"],
                  "library_ms": None, "library_device_ms": None})
 
     # K4
-    row, more = window_rows(g, launches)
+    row, more = window_rows(g, launches[DEFAULT])
     rows.append(row)
     detail += more
+    for row in rows:
+        row["launches_by_config"] = {c: n[row["name"]]
+                                     for c, n in launches.items()}
     return rows, detail
 
 
@@ -782,23 +833,53 @@ def eval_kernel_rows():
 
 def build_models(dtype, device, config=FAST):
     """The configuration's models with trained weights (tracked in the
-    repo): ckpt_r05's flow and homo nets, and for the default configuration
-    its comp net and the TransRef checkpoint. Raises if the checkout lacks
-    them."""
+    repo): ckpt_r05's flow and homo nets, and where the configuration uses
+    them its comp net, the TransRef checkpoint or the SD checkpoint.
+    Raises if the checkout lacks them."""
     from stitchax_torch.run.stitcher import StitchModels
-    default = config == DEFAULT
-    for path in [CKPT] + ([TRANSREF_CKPT] if default else []):
+    extra = {DEFAULT: [TRANSREF_CKPT], DIFFUSION: [SD_CKPT]}.get(config, [])
+    for path in [CKPT] + extra:
         if not os.path.isfile(path):
             raise FileNotFoundError(f"{path} is missing: the smoke stitches "
                                     "with the trained weights")
-    return StitchModels.from_npz(CKPT, device, dtype, config,
-                                 transref=TRANSREF_CKPT if default else None)
+    return StitchModels.from_npz(
+        CKPT, device, dtype, config,
+        transref=TRANSREF_CKPT if config == DEFAULT else None,
+        sd=SD_CKPT if config == DIFFUSION else None)
 
 
 def check_finite(out) -> None:
     for k, v in out.items():
         if v.dtype.kind == "f" and not np.isfinite(v).all():
             raise RuntimeError(f"stitch output {k} is not finite")
+
+
+def sd_part_ms(sd, canvas_h, canvas_w, iters=5):
+    """ms by CUDA events of the SD plugin's parts at a canvas: one DDIM
+    step (ControlNet on the 4-channel latents, then the UNet on the
+    9-channel concat with its residuals), the VAE's encode of the canvas
+    and its decode of the latents; on seeded inputs."""
+    import torch
+
+    dev = sd.device
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    h8, w8 = int(canvas_h) // 8, int(canvas_w) // 8
+    lat = torch.randn(1, 4, h8, w8, device=dev, generator=g)
+    lat9 = torch.randn(1, 9, h8, w8, device=dev, generator=g)
+    ctrl = torch.rand(1, 3, 8 * h8, 8 * w8, device=dev, generator=g)
+    t = torch.full((1,), 601.0, device=dev)
+
+    @torch.no_grad()
+    def step():
+        res, mid = sd.controlnet(lat, t, sd.context, ctrl)
+        return sd.unet(lat9, t, sd.context, res, mid)
+
+    with torch.no_grad():
+        return {"ddim_step_ms": cuda_time(step, iters, 1),
+                "vae_encode_ms": cuda_time(
+                    lambda: sd.vae.encode_mode(ctrl), iters, 1),
+                "vae_decode_ms": cuda_time(lambda: sd.vae.decode(lat),
+                                           iters, 1)}
 
 
 def stitch_phase(img1, img2, config=FAST):
@@ -824,27 +905,38 @@ def stitch_phase(img1, img2, config=FAST):
     out = stitcher.stitch(img1, img2, timings=timings)
     total_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(library.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check_finite(out)
-    if (any(n == 0 for n in launches.values())
-            or any(launches[k] != n for k, n in EXPECT_LAUNCHES.items())):
+    want = EXPECT_LAUNCHES[config]
+    if (launches["tps_grid"] < 1
+            or any(launches[k] != n for k, n in want.items())):
         raise RuntimeError(f"{config}: kernel launches per stitch "
-                           f"{launches}, expected {EXPECT_LAUNCHES} and "
-                           "tps_grid >= 1")
-    res = {"phase": "stitch" if config == FAST else "stitch_default",
+                           f"{launches}, expected {want} and tps_grid >= 1")
+    res = {"phase": PHASE[config],
            "config": config, "dtype": "bfloat16", "weights": WEIGHTS,
            "weights_load_s": load_s, "pair_hw": list(PAIR_HW),
            "stitch_ms": total_ms, **timings, "first_call": warm,
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "peak_mem_gib": peak,
            "canvas_hw": out["canvas_hw"].tolist(),
            "true_hw": out["true_hw"].tolist(),
            "control_points": int(out["control_valid"].size),
            "control_valid": int(out["control_valid"].sum()),
            "mask2_mean": float(out["mask2"].mean()),
            "launches_per_stitch": launches}
-    if config == DEFAULT:
-        res["transref_weights"] = TRANSREF_WEIGHTS
+    if config != FAST:
         res["composition_hw"] = list(out["composition"].shape[:2])
         res["learned_mask1_mean"] = float(out["learned_mask1"].mean())
+    if config == DEFAULT:
+        res["transref_weights"] = TRANSREF_WEIGHTS
+    if config == DIFFUSION:
+        ip = stitcher.inpainter
+        steps = ip.denoise_fn.steps
+        res.update(sd_weights=SD_WEIGHTS, sd_dtype="float32",
+                   sd_strength=ip.strength, ddim_steps=steps,
+                   inpaint_ms_per_step=timings["inpaint_ms"] / steps,
+                   tf32_convolutions=torch.backends.cudnn.allow_tf32,
+                   hole_share=float((out["inpaint_area_mask"] > 0.5).mean()),
+                   **sd_part_ms(models.sd_models, *out["canvas_hw"]))
     emit(res)
     # K2's inputs as tps_backward_warp forms them from this stitch's
     # control points, at this stitch's (bucketed) canvas
@@ -1014,6 +1106,73 @@ def stitch_vs_stitchax_phase():
     _check(res, STITCHAX_TOL, "stitch_vs_stitchax")
 
 
+def sd_vs_stitchax_phase():
+    """The diffusion configuration in fp32 on the card (TF32 off) against
+    stitchax's outputs on the CPU (SD_REFERENCE): the SD inpainter alone on
+    the input and hole stitchax's inpainter got in its demo1 stitch, then
+    the demo1 stitch itself (the decoded pair from REFERENCE)."""
+    import torch
+
+    from stitchax_torch.compose.inpainters import StableDiffusionInpainter
+    from stitchax_torch.run.stitcher import Stitcher, output_images
+    from stitchax_torch.utils.precision import fp32_exact
+
+    for path in (SD_REFERENCE, REFERENCE):
+        if not os.path.isfile(os.path.join(REPO, path)):
+            raise FileNotFoundError(f"{path} is missing: stitchax's outputs")
+    with np.load(os.path.join(REPO, SD_REFERENCE)) as d:
+        ref = {k.split("/", 1)[1]: d[k] for k in d.files}
+    with np.load(os.path.join(REPO, REFERENCE)) as d:
+        pair = [d[f"demo1/img{i}"].astype(np.float32) for i in (1, 2)]
+    fp32_exact()
+    models = build_models(torch.float32, "cuda", DIFFUSION)
+
+    ip = StableDiffusionInpainter(models=models.sd_models)
+    hole = ref["inpaint_mask"][..., 0] > 0.5
+    t0 = time.perf_counter()
+    out = ip.inpaint(torch.from_numpy(ref["inpaint_in"]).cuda(),
+                     torch.from_numpy(ref["inpaint_mask"]).cuda())
+    out = out.cpu().numpy()
+    inpaint_s = time.perf_counter() - t0
+    res = {"phase": "sd_vs_stitchax", "config": DIFFUSION,
+           "dtype": "float32", "reference": SD_REFERENCE,
+           "sd_weights": SD_WEIGHTS, "inpaint_hw": list(hole.shape),
+           "ddim_steps": ip.denoise_fn.steps, "inpaint_s": inpaint_s,
+           "inpaint_outside_moved_px": int(
+               (out[~hole] != ref["inpaint_in"][~hole]).sum()),
+           "inpaint_hole_psnr_db": _psnr(out[hole],
+                                         ref["inpaint_out_hole"][hole])}
+    if not np.isfinite(out).all():
+        raise RuntimeError("sd_vs_stitchax: the inpainter's output is not "
+                           "finite")
+
+    t0 = time.perf_counter()
+    got = Stitcher(models, device="cuda", config=DIFFUSION).stitch(*pair)
+    res["stitch_s"] = time.perf_counter() - t0
+    check_finite(got)
+    th, tw = (int(v) for v in ref["true_hw"])
+    if [int(v) for v in got["true_hw"]] != [th, tw]:
+        emit(res)
+        raise RuntimeError(f"sd_vs_stitchax: canvas {got['true_hw']}, "
+                           f"stitchax {[th, tw]}")
+    files = output_images(got, *pair)
+    lm = np.concatenate([np.abs(got[k] - ref[k]).ravel()
+                         for k in ("learned_mask1", "learned_mask2")])
+    res.update({f"{k}_psnr_db": _psnr(files[k], ref[k])
+                for k in ("warp2", "ave_fusion", "composition")})
+    res.update(
+        canvas_moved_px=float(np.abs(np.concatenate([
+            got["canvas_box"][:2] - ref["canvas_origin"],
+            got["canvas_hw"] - ref["canvas_hw"]])).max()),
+        mask1_moved_px=int((got["mask1"] != ref["mask1"][:th, :tw]).sum()),
+        hole_moved_px=int((got["inpaint_area_mask"]
+                           != ref["hole_mask"][:th, :tw]).sum()),
+        hole_share=float(hole.mean()),
+        learned_mask_mean_abs=float(lm.mean()),
+        learned_mask_max_abs=float(lm.max()))
+    _check(res, SD_STITCHAX_TOL, "sd_vs_stitchax")
+
+
 def jpeg_phase():
     """The port's JPEG decoder on the card's host: the demo inputs decode
     to the pixels Pillow gave (REFERENCE holds them), the encoder writes
@@ -1117,11 +1276,12 @@ def _cli_files(stitcher, results):
 
 def cli_phase():
     """The stitch CLI over demo_data/ on the card, into a temporary result
-    directory: fast_cv_g8 in bf16 (stitchax's precision) and the default
-    configuration in fp32, each through `out.setup` and the sweep that
-    `python -m stitchax_torch.out` runs (kernel launches counted over the
-    sweep), and the default configuration once more as the command itself
-    in a child process, in bf16."""
+    directory: fast_cv_g8 in bf16 (stitchax's precision), the default
+    configuration in fp32 and the diffusion configuration in bf16 (its SD
+    in fp32), each through `out.setup` and the sweep that `python -m
+    stitchax_torch.out` runs (kernel launches counted over the sweep), and
+    the default configuration once more as the command itself in a child
+    process, in bf16."""
     import shutil
     import tempfile
 
@@ -1134,11 +1294,14 @@ def cli_phase():
     tmp = tempfile.mkdtemp(prefix="stitchax_cli_")
     res = {"phase": "cli", "data_root_path": "demo_data/", "configs": {}}
     try:
-        for config, fp32 in ((FAST, False), (DEFAULT, True)):
+        for config, fp32 in ((FAST, False), (DEFAULT, True),
+                             (DIFFUSION, False)):
             argv = ["--inf_cfg", config, "--data_root_path", demo,
                     "--ckpt_path", CKPT, "--result_dir", tmp]
             if config == DEFAULT:
                 argv += ["--transref_ckpt", TRANSREF_CKPT]
+            if config == DIFFUSION:
+                argv += ["--sd_ckpt", SD_CKPT]
             if fp32:
                 argv.append("--fp32")
             t0 = time.perf_counter()
@@ -1150,9 +1313,14 @@ def cli_phase():
             sweep_s = time.perf_counter() - t0
             launches = dict(library.launches)
             logger.close()
-            if any(n == 0 for n in launches.values()):
-                raise RuntimeError(f"cli {config}: a kernel of the path was "
-                                   f"not launched: {launches}")
+            want = {k: n * len(jobs)
+                    for k, n in EXPECT_LAUNCHES[config].items()}
+            if (any(launches[k] != n for k, n in want.items())
+                    or launches["tps_grid"] < len(jobs)):
+                raise RuntimeError(f"cli {config}: kernel launches "
+                                   f"{launches} over {len(jobs)} pairs, "
+                                   f"expected {want} and tps_grid >= 1 "
+                                   "per pair")
             worst_db, pairs = _cli_files(stitcher, list(zip(jobs, results)))
             entry = {"dtype": "float32" if fp32 else "bfloat16",
                      "result_dir": os.path.basename(save_root),
@@ -1416,6 +1584,86 @@ def profile_phase(img1, img2, trace_path=None, config=FAST) -> None:
         prof.export_chrome_trace(trace_path)
 
 
+def _seeded_init(net, g) -> None:
+    """Weights ~ N(0, 1 / fan_in), biases ~ 0.02 N, norm scales 1, drawn
+    from the generator `g` on the card."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=g)
+            elif name.endswith("weight"):         # GroupNorm / LayerNorm
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=g)
+
+
+def sd15_widths_phase():
+    """The port's UNet, ControlNet and VAE at stitchax's UNetConfig() and
+    AutoencoderKL() defaults (the SD-1.5 inpainting widths, with the third
+    attention level the committed checkpoint does not have), seeded
+    weights, fp32 with TF32 off: make_sd_inpaint_fn with 3 DDIM steps on a
+    512x768 canvas with a hole (VAE encode, the steps, VAE decode), timed
+    warm; one step and the VAE's parts alone; peak memory; finite."""
+    import torch
+
+    from stitchax_torch.models.diffusion import (ControlNet, UNet2DCondition,
+                                                 UNetConfig)
+    from stitchax_torch.models.sd_pipeline import SDModels, make_sd_inpaint_fn
+    from stitchax_torch.models.vae import AutoencoderKL
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cfg = UNetConfig()
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        nets = [UNet2DCondition(cfg), ControlNet(cfg), AutoencoderKL()]
+    for n in nets:
+        _seeded_init(n, g)
+    sd = SDModels(*nets, torch.randn(1, 77, cfg.context_dim, device=dev,
+                                     generator=g)).to(dev)
+    build_s = time.perf_counter() - t0
+    H, W = 512, 768
+    img = torch.rand(H, W, 3, device=dev, generator=g) * 255.0
+    mask = torch.zeros(H, W, 1, device=dev)
+    mask[160:352, 256:512] = 1.0
+    fn = make_sd_inpaint_fn(sd, num_steps=3, seed=SEED, strength=1.0)
+    out = fn(img, mask)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(img, mask)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    keep = mask[..., 0] < 0.5
+    res = {"phase": "sd15_widths", "dtype": "float32", "tf32": False,
+           "unet": {"block_channels": list(cfg.block_channels),
+                    "layers_per_block": cfg.layers_per_block,
+                    "attention_resolutions": list(cfg.attention_resolutions),
+                    "context_dim": cfg.context_dim,
+                    "num_heads": cfg.num_heads},
+           "vae_block_channels": list(nets[2].encoder.block_channels),
+           "params_m": {k: sum(p.numel() for p in n.parameters()) / 1e6
+                        for k, n in zip(("unet", "controlnet", "vae"),
+                                        nets)},
+           "weights": "seeded (torch.Generator), not trained",
+           "canvas_hw": [H, W], "latent_hw": [H // 8, W // 8],
+           "ddim_steps": fn.steps, "build_s": build_s,
+           "inpaint_ms": total_ms, **sd_part_ms(sd, H, W, iters=3),
+           "peak_mem_gib": peak,
+           "finite": bool(torch.isfinite(out).all().item()),
+           "outside_hole_kept": bool(torch.equal(out[keep], img[keep]))}
+    emit(res)
+    if not (res["finite"] and res["outside_hole_kept"]):
+        raise RuntimeError("sd15_widths: the output is not finite or the "
+                           "pixels outside the hole moved")
+
+
 def main() -> int:
     import torch
 
@@ -1442,11 +1690,13 @@ def main() -> int:
             del args[i:i + 2]
         profile_phase(img1, img2, args[1] if len(args) > 1 else None, config)
         return 0
-    _, tps_fast = stitch_phase(img1, img2, FAST)
-    launches, tps_default = stitch_phase(img1, img2, DEFAULT)
+    launches, tps_inputs = {}, {}
+    for config in (FAST, DEFAULT, DIFFUSION):
+        launches[config], tps_inputs[config] = stitch_phase(img1, img2,
+                                                            config)
+        torch.cuda.empty_cache()
 
-    rows, detail = kernel_rows({FAST: tps_fast, DEFAULT: tps_default},
-                               launches)
+    rows, detail = kernel_rows(tps_inputs, launches)
     bad = sorted({d["kernel"] for d in detail
                   if not d["max_abs_err"] <= d["tol"]})
     emit({"phase": "kernels", "card": smi, "calls": detail,
@@ -1470,9 +1720,11 @@ def main() -> int:
     stitch_vs_cpu_phase(img1, img2)
     stitch_vs_cpu_default_phase(img1, img2)
     stitch_vs_stitchax_phase()
+    sd_vs_stitchax_phase()
     jpeg_phase()
     cli_phase()
     evaluate_phase()
+    sd15_widths_phase()
 
     emit({"kernels": rows})
     print(smi, flush=True)

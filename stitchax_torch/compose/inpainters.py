@@ -1,15 +1,17 @@
 """Inpainters, by name (port of stitchax/compose/inpainters.py): the
-classical push-pull `cv_inpainter` (:31, :83) and `transref_inpainter`
-(:94-138). Images (H, W, C) float32 in [0, 255]; mask (H, W, 1) with
-1 = hole."""
+classical push-pull `cv_inpainter` (:31, :83), `transref_inpainter`
+(:94-138) and the SD + ControlNet `inpainter` (:141-221). Images (H, W, C)
+float32 in [0, 255]; mask (H, W, 1) with 1 = hole."""
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..models.sd_pipeline import SDModels, load_sd_models, make_sd_inpaint_fn
 from ..models.transref import TransRefBase
 from ..ops.sampling import image_resize
 from ..utils.precision import call_in
@@ -106,8 +108,78 @@ class TransRefInpainter:
         return self._run(image, mask, control)
 
 
+# the committed in-repository SD checkpoint, stitchax's default
+# (stitchax/compose/inpainters.py:170-176)
+DEFAULT_SD_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "..", "..", "results", "sd_ckpt_r05.pt")
+
+
+def resolve_sd_ckpt(ckpt: Optional[str] = None) -> str:
+    """stitchax's checkpoint resolution: `ckpt`, else STITCHAX_SD_CKPT,
+    else the committed results/sd_ckpt_r05.pt. Where stitchax warns and
+    fills holes by push-pull instead (no checkpoint, or "none"), this
+    raises."""
+    ckpt = ckpt or os.environ.get("STITCHAX_SD_CKPT")
+    if not ckpt and os.path.isfile(DEFAULT_SD_CKPT):
+        ckpt = DEFAULT_SD_CKPT
+    if not ckpt or ckpt.lower() == "none":
+        raise ValueError("the SD inpainter needs a packed SD checkpoint "
+                         "(pass ckpt= or set STITCHAX_SD_CKPT, e.g. "
+                         "results/sd_ckpt_r05.pt)")
+    if not os.path.isfile(ckpt):
+        raise FileNotFoundError(f"SD checkpoint {ckpt!r} does not exist")
+    return ckpt
+
+
+class StableDiffusionInpainter:
+    """SD + ControlNet inpainting. Canvases above `resize_to_area_limit`
+    pixels are denoised at a size scaled to that area (each side floored to
+    a multiple of 8; image antialiased-bilinear, mask nearest) and resized
+    back, the original kept outside the hole.
+
+    The nets come as `models` (loaded once, e.g. by StitchModels.from_npz(
+    ..., sd=...)) or from a checkpoint resolved as `resolve_sd_ckpt` does,
+    loaded onto `device`; `denoise_fn(image, mask, num_steps)` replaces
+    them. strength: the argument, else STITCHAX_SD_STRENGTH, else the
+    checkpoint's preferred strength."""
+    name = "inpainter"
+
+    def __init__(self, denoise_fn: Optional[Callable] = None,
+                 ckpt: Optional[str] = None, num_steps: int = 50,
+                 strength: Optional[float] = None,
+                 resize_to_area_limit: int = 750 * 750,
+                 models: Optional[SDModels] = None, device="cuda"):
+        self.num_steps = num_steps
+        self.resize_to_area_limit = resize_to_area_limit
+        env_s = os.environ.get("STITCHAX_SD_STRENGTH")
+        if strength is None and env_s is not None:
+            strength = float(env_s)
+        if denoise_fn is None:
+            if models is None:
+                models = load_sd_models(resolve_sd_ckpt(ckpt), device=device)
+            if strength is None:
+                strength = models.preferred_strength
+            denoise_fn = make_sd_inpaint_fn(models, num_steps,
+                                            strength=strength)
+        self.strength = strength
+        self.denoise_fn = denoise_fn
+
+    def inpaint(self, image, mask, control_image=None):
+        H, W, _ = image.shape
+        if H * W <= self.resize_to_area_limit:
+            return self.denoise_fn(image, mask, self.num_steps)
+        s = (self.resize_to_area_limit / (H * W)) ** 0.5
+        nh, nw = max(int(H * s) // 8 * 8, 8), max(int(W * s) // 8 * 8, 8)
+        small = image_resize(image, nh, nw, "bilinear")
+        msk_s = (image_resize(mask, nh, nw, "nearest") > 0.5).to(image.dtype)
+        out = image_resize(self.denoise_fn(small, msk_s, self.num_steps),
+                           H, W, "bilinear")
+        return image * (1 - mask) + out * mask
+
+
 INPAINTERS = {"cv_inpainter": DiffusionJacobiInpainter,
-              "transref_inpainter": TransRefInpainter}
+              "transref_inpainter": TransRefInpainter,
+              "inpainter": StableDiffusionInpainter}
 
 
 def get_inpainter(name: str, **kwargs):

@@ -1,9 +1,10 @@
-"""Mix method `all_img1_with_inpaint` (port of
-stitchax/compose/mix_methods.py:46): fill most holes from img1 and
-model-inpaint only a thin border ring. Unbatched HWC tensors. With the
-TransRef inpainter (`inpainter_name="transref"`) the img1-filled composite,
-clipped to [0, 255], is both the inpainting input and the reference
-(stitchax/compose/mix_methods.py:91-98)."""
+"""Mix methods (port of stitchax/compose/mix_methods.py), unbatched HWC
+tensors: `all_img1_with_inpaint` (:46) fills most holes from img1 and
+model-inpaints only a thin border ring; `inpaint_all_area` (:112) sends
+every remaining hole to the inpainter. With the TransRef inpainter
+(`inpainter_name="transref"`) the inpainter also gets a control image: for
+the first the img1-filled composite, clipped to [0, 255], as input and
+reference (:91-98), for the second output1 clipped (:133-135)."""
 
 from __future__ import annotations
 
@@ -73,4 +74,31 @@ def all_img1_with_inpaint(tps_h_warp, tps_h_warp_mask, output1, mask1,
                      inpaint_img_mask, area)
 
 
-MIX_METHODS = {"all_img1_with_inpaint": all_img1_with_inpaint}
+def inpaint_all_area(tps_h_warp, tps_h_warp_mask, output1, mask1, final_warp,
+                     occlusion_mask, inpaint: Optional[Callable] = None,
+                     inpainter_name: str = "") -> MixResult:
+    """The holes of the warp inside img1's footprint and img2's coverage,
+    thin parts thickened by 16 px, all go to the inpainter; `area` is that
+    hole mask."""
+    inv_mask1 = 1.0 - mask1
+    tps_final_warp = final_warp * occlusion_mask + tps_h_warp * inv_mask1
+    tps_final_warp_mask = occlusion_mask + tps_h_warp_mask * inv_mask1
+    inpaint_area_mask = dilate_thin_area(
+        (1.0 - tps_final_warp_mask) * mask1 * tps_h_warp_mask,
+        thickening_kernel_size=16)
+    inpaint_img = tps_final_warp
+    if inpaint is not None:
+        if inpainter_name == "transref":
+            inpaint_img = inpaint(tps_final_warp, inpaint_area_mask,
+                                  output1.clamp(0, 255))
+        else:
+            inpaint_img = inpaint(tps_final_warp, inpaint_area_mask)
+    inpaint_img_mask = tps_h_warp_mask
+    tps_final_warp, tps_final_warp_mask = _use_inpaint_if_nonzero(
+        inpaint_img, inpaint_img_mask, tps_final_warp, tps_final_warp_mask)
+    return MixResult(tps_final_warp, tps_final_warp_mask, inpaint_img,
+                     inpaint_img_mask, inpaint_area_mask)
+
+
+MIX_METHODS = {"all_img1_with_inpaint": all_img1_with_inpaint,
+               "inpaint_all_area": inpaint_all_area}

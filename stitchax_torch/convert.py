@@ -21,6 +21,12 @@ torch's padding k-1-lo and output_padding hi-lo.
 `load_flax_msgpack` reads flax's msgpack serialisation (e.g.
 results/transref_ckpt_r05_bf16.msgpack, written by
 `flax.serialization.to_bytes`) with numpy alone.
+
+`load_sd_container` reads a packed SD checkpoint (e.g.
+results/sd_ckpt_r05.pt, a `torch.save`d dict); `conv_params`,
+`linear_params` and `norm_params` map diffusers / transformers state-dict
+entries onto stitchax's flax layout (stitchax/convert.py:45-77), so its
+converters' trees load with `load_jax_params` like any other.
 """
 
 from __future__ import annotations
@@ -232,3 +238,43 @@ def load_flax_msgpack(path: str) -> Dict[str, Any]:
     if not isinstance(tree, dict):
         raise ValueError(f"{path}: not a flax state dict")
     return tree
+
+
+# --------------------------- torch state dicts --------------------------------
+
+def _np(t) -> np.ndarray:
+    return t if isinstance(t, np.ndarray) else t.detach().cpu().numpy()
+
+
+def conv_params(sd, prefix: str) -> Dict[str, np.ndarray]:
+    """torch Conv2d weight (O, I, kH, kW) [+ bias] -> flax kernel (kH, kW,
+    I, O) [+ bias]."""
+    p = {"kernel": _np(sd[f"{prefix}.weight"]).transpose(2, 3, 1, 0)}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = _np(sd[f"{prefix}.bias"])
+    return p
+
+
+def linear_params(sd, prefix: str) -> Dict[str, np.ndarray]:
+    """torch Linear weight (out, in) [+ bias] -> flax kernel (in, out)."""
+    p = {"kernel": _np(sd[f"{prefix}.weight"]).T}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = _np(sd[f"{prefix}.bias"])
+    return p
+
+
+def norm_params(sd, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _np(sd[f"{prefix}.weight"]),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def load_sd_container(path: str) -> Dict[str, Any]:
+    """The dict a packed SD checkpoint holds: format "stitchax_jax"
+    (stitchax's own trees of numpy arrays under unet_vars /
+    controlnet_vars / vae_vars, the empty-prompt `context`, `configs`,
+    `preferred_strength`) or diffusers / transformers state dicts under
+    unet / controlnet / vae / clip."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if not isinstance(blob, dict):
+        raise ValueError(f"{path}: not a packed SD checkpoint")
+    return blob

@@ -3,6 +3,9 @@
     python -m stitchax_torch.out --data_root_path demo_data/ \
         --ckpt_path results/ckpt_r05_bf16.npz \
         --transref_ckpt results/transref_ckpt_r05_bf16.msgpack
+    python -m stitchax_torch.out --data_root_path demo_data/ \
+        --ckpt_path results/ckpt_r05_bf16.npz \
+        --inf_cfg inpaint_all_area_g12_diffusion
 
 Stitches every pair of `{data_root_path}/{txt_file}` with the settings of
 `inf_configs.<inf_cfg>` and writes stitchax's per-pair JPEGs (input1/2,
@@ -19,7 +22,11 @@ and `--align_batch`, TPU workarounds (the port stitches at native
 resolution, one pair at a time); config.txt records them at stitchax's
 defaults, so that it is byte-equal to stitchax's for the same flags. The
 nets run in bf16 as stitchax runs them, on `cuda:<gpu>`; `--fp32` runs
-them in fp32 (TF32 off), and `--device cpu` runs on the CPU.
+them in fp32 (TF32 off), and `--device cpu` runs on the CPU. The SD
+inpainter of the `*_diffusion` configuration always runs in fp32; its
+checkpoint is `--sd_ckpt`, else STITCHAX_SD_CKPT, else the repository's
+results/sd_ckpt_r05.pt (stitchax's resolution; without one the stitch
+refuses to start).
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from typing import List, Optional, Tuple
 # stitchax's TPU flags, recorded in config.txt at its defaults
 STITCHAX_ONLY_FLAGS = {"input_bucket": None, "align_batch": 4}
 # the port's own flags, which stitchax's config.txt does not hold
-PORT_FLAGS = ("device", "fp32")
+PORT_FLAGS = ("device", "fp32", "sd_ckpt")
 
 
 def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -60,6 +67,10 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="TransRef weights (flax msgpack), e.g. "
                         "results/transref_ckpt_r05_bf16.msgpack; needed by "
                         "configurations with the TransRef inpainter")
+    p.add_argument("--sd_ckpt", type=str, default=None,
+                   help="packed SD checkpoint of the diffusion inpainter; "
+                        "default STITCHAX_SD_CKPT, else the repository's "
+                        "results/sd_ckpt_r05.pt")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default cuda:<gpu> ('cpu' for tests)")
     p.add_argument("--fp32", action="store_true", default=False,
@@ -81,7 +92,7 @@ def setup(args: argparse.Namespace):
     (data_dict, result_path) pairs."""
     import torch
 
-    from .compose.inpainters import INPAINTERS
+    from .compose.inpainters import INPAINTERS, resolve_sd_ckpt
     from .compose.mix_methods import MIX_METHODS
     from .run.config import build_out_config
     from .run.stitcher import Stitcher, StitchModels, load_pair_list
@@ -102,6 +113,12 @@ def setup(args: argparse.Namespace):
         raise SystemExit(f"--ckpt_path {args.ckpt_path!r}: expected an npz "
                          "snapshot of stitchax's weights "
                          "(results/ckpt_r05_bf16.npz)")
+    sd_ckpt = None
+    if tps.inpainter == "inpainter":
+        try:
+            sd_ckpt = resolve_sd_ckpt(args.sd_ckpt)
+        except (ValueError, FileNotFoundError) as e:
+            raise SystemExit(f"--inf_cfg {args.inf_cfg}: {e}") from None
 
     save_root = os.path.join(
         args.result_dir,
@@ -116,7 +133,7 @@ def setup(args: argparse.Namespace):
     if args.fp32:
         fp32_exact()
     models = StitchModels.from_npz(args.ckpt_path, device, dtype, config=cfg,
-                                   transref=args.transref_ckpt)
+                                   transref=args.transref_ckpt, sd=sd_ckpt)
     stitcher = Stitcher(models, device=device, config=cfg)
 
     pairs = load_pair_list(args.data_root_path, args.txt_file)

@@ -7,13 +7,18 @@ align (homography net + FlowFormer++ both ways) -> canvas render -> TPS
 breaking -> the configuration's mix method and inpainter -> the learned
 composition where the configuration uses it. `Stitcher` takes the name of
 an `inf_configs` module: `fast_cv_g8` (the default here; classical
-inpainter, grid 8, no composition) or `all_img1_with_inpaint_g12_transRef`
+inpainter, grid 8, no composition), `all_img1_with_inpaint_g12_transRef`
 (the default of stitchax's out.py: TransRef inpainter, grid 12, the
-composition net), whose models load with
+composition net) or `inpaint_all_area_g12_diffusion` (every hole to the
+SD + ControlNet inpainter, grid 12, the composition net), whose models load
+with
 
     StitchModels.from_npz("results/ckpt_r05_bf16.npz",
                           config="all_img1_with_inpaint_g12_transRef",
                           transref="results/transref_ckpt_r05_bf16.msgpack")
+    StitchModels.from_npz("results/ckpt_r05_bf16.npz",
+                          config="inpaint_all_area_g12_diffusion",
+                          sd="results/sd_ckpt_r05.pt")
 
 The entry points run on the card unless the caller passes `device="cpu"`;
 without a card they raise. `stitch_and_save` / `stitch_and_save_many` read
@@ -37,12 +42,13 @@ import torch
 from .. import convert
 from ..align.adapter import (AlignConfig, bucket_canvas, stitch_model_step,
                              stitch_render)
-from ..compose.inpainters import get_inpainter
+from ..compose.inpainters import get_inpainter, resolve_sd_ckpt
 from ..compose.mix_methods import MIX_METHODS
 from ..io import jpeg
 from ..io.resize import resize_bilinear
 from ..models import (CompositionNet, FlowFormer, TransRefBase,
                       UDIS2HomographyNet, compose_seam)
+from ..models.sd_pipeline import SDModels, load_sd_models
 from ..ops.sampling import resize_image_b
 from ..tps.pipeline import TPSConfig, tps_break_warp
 from ..utils.precision import call_in
@@ -156,14 +162,16 @@ class StitchModels:
     """The stitch's networks, resident on one device in one compute dtype
     (bf16 as stitchax runs them; fp32 for comparisons): the homography net
     and FlowFormer++ (None where the caller passes its own homo_fn /
-    flow_fn), and, for configurations that use them, the composition net
-    and TransRef."""
+    flow_fn), and, for configurations that use them, the composition net,
+    TransRef and the SD inpainter's nets (always fp32, as stitchax runs
+    them)."""
 
     def __init__(self, flow_model: Optional[FlowFormer],
                  homo_model: Optional[UDIS2HomographyNet], device="cuda",
                  dtype: torch.dtype = torch.bfloat16,
                  comp_model: Optional[CompositionNet] = None,
-                 transref_model: Optional[TransRefBase] = None):
+                 transref_model: Optional[TransRefBase] = None,
+                 sd_models: Optional[SDModels] = None):
         self.device = resolve_device(device)
         self.dtype = dtype
         place = lambda m: (None if m is None
@@ -172,26 +180,33 @@ class StitchModels:
         self.homo_model = place(homo_model)
         self.comp_model = place(comp_model)
         self.transref_model = place(transref_model)
+        self.sd_models = (None if sd_models is None
+                          else sd_models.to(self.device))
 
     @classmethod
     def from_npz(cls, path: str, device="cuda",
                  dtype: torch.dtype = torch.bfloat16,
                  config: str = DEFAULT_CONFIG,
-                 transref: Optional[str] = None) -> "StitchModels":
+                 transref: Optional[str] = None,
+                 sd: Optional[str] = None) -> "StitchModels":
         """Trained weights from a stitchax npz snapshot ('flow' and 'homo',
-        and 'comp' where the configuration uses the composition net), and
+        and 'comp' where the configuration uses the composition net),
         TransRef's from a flax msgpack checkpoint when `transref` names
-        one."""
+        one, and the SD inpainter's from a packed checkpoint when `sd` names
+        one or the configuration uses that inpainter (`resolve_sd_ckpt`)."""
         resolve_device(device)
+        settings = load_inf_config(config)
         tree = convert.load_npz(path)
         flow = convert.load_jax_params(FlowFormer(), tree["flow"])
         homo = convert.load_jax_params(UDIS2HomographyNet(), tree["homo"])
         comp = (convert.load_jax_params(CompositionNet(), tree["comp"])
-                if load_inf_config(config)["use_composition"] else None)
+                if settings["use_composition"] else None)
         tr = (convert.load_jax_params(TransRefBase(),
                                       convert.load_flax_msgpack(transref))
               if transref else None)
-        return cls(flow, homo, device, dtype, comp, tr)
+        sdm = (load_sd_models(resolve_sd_ckpt(sd), device="cpu")
+               if sd or settings["inpainter"] == "inpainter" else None)
+        return cls(flow, homo, device, dtype, comp, tr, sdm)
 
 
 class Stitcher:
@@ -217,6 +232,9 @@ class Stitcher:
         if name == "transref_inpainter":          # raises without weights
             kwargs = dict(model=getattr(models, "transref_model", None),
                           dtype=getattr(models, "dtype", torch.float32))
+        elif name == "inpainter":     # without models, resolve_sd_ckpt's
+            kwargs = dict(models=getattr(models, "sd_models", None),
+                          device=self.device)
         self.inpainter = get_inpainter(name, **kwargs)
         self.inpainter_name = ("transref" if name == "transref_inpainter"
                                else name)
@@ -317,7 +335,9 @@ class Stitcher:
                    canvas_box=out["canvas_box"][0], H_warp=r["H_warp"][0],
                    final_warp=final_warp, output1=output1, mask1=mask1,
                    output2=output2, mask2=mask2, new_blend_image=blend,
-                   occlusion_mask=occ0, control_src=t["control_src"],
+                   occlusion_mask=occ0,
+                   inpaint_area_mask=mixed.inpaint_area_mask,
+                   control_src=t["control_src"],
                    control_dst=t["control_dst"],
                    control_valid=t["control_valid"],
                    canvas=(out_h, out_w), true_hw=(true_h, true_w))
@@ -429,5 +449,6 @@ def save_outputs(out: Mapping[str, np.ndarray], img1: np.ndarray,
 # canvas-sized outputs, cropped to the true canvas (the composition only
 # where it ran at the canvas size, not upsized)
 CANVAS_KEYS = ("H_warp", "final_warp", "output1", "mask1", "output2",
-               "mask2", "new_blend_image", "occlusion_mask", "composition",
-               "learned_mask1", "learned_mask2")
+               "mask2", "new_blend_image", "occlusion_mask",
+               "inpaint_area_mask", "composition", "learned_mask1",
+               "learned_mask2")

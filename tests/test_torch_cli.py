@@ -21,7 +21,6 @@ REF = os.path.join(REPO, "tests", "torch_reference", "demo_stitchax_fp32.npz")
 INF_CONFIGS = sorted(os.path.basename(p)[:-3] for p in glob.glob(
     os.path.join(REPO, "inf_configs", "*.py"))
     if not p.endswith("__init__.py"))
-PORTED = [c for c in INF_CONFIGS if "diffusion" not in c]
 FAST_FILES = ["H_warp", "ave_fusion", "flow_warp", "input1", "input2",
               "mask1", "mask2", "warp1", "warp2"]
 
@@ -32,7 +31,7 @@ def _stitchax_out_args(monkeypatch, argv):
     return jout.get_args()
 
 
-@pytest.mark.parametrize("inf_cfg", PORTED)
+@pytest.mark.parametrize("inf_cfg", INF_CONFIGS)
 def test_config_dump_equals_stitchax(monkeypatch, inf_cfg):
     """The CLI's resolved config, dumped as config.txt, is stitchax's for
     the same flags (its two TPU flags recorded at their defaults), and
@@ -55,12 +54,22 @@ def test_config_dump_equals_stitchax(monkeypatch, inf_cfg):
     assert build_eval_config(args).dump() == j_eval_config(args).dump()
 
 
-def test_diffusion_config_is_refused(tmp_path):
+def test_diffusion_config_is_refused(tmp_path, monkeypatch):
+    """Without an SD checkpoint (STITCHAX_SD_CKPT=none, or a path that does
+    not exist) the diffusion configuration refuses to start, before it
+    writes anything: stitchax warns and fills by push-pull instead."""
     from stitchax_torch import out
 
-    with pytest.raises(SystemExit, match="not ported"):
-        out.main(["--inf_cfg", "inpaint_all_area_g12_diffusion",
-                  "--device", "cpu", "--result_dir", str(tmp_path)])
+    if not os.path.isfile(CKPT):
+        pytest.skip(f"{CKPT} is not in this checkout")
+    argv = ["--inf_cfg", "inpaint_all_area_g12_diffusion", "--device", "cpu",
+            "--ckpt_path", CKPT, "--result_dir", str(tmp_path)]
+    monkeypatch.setenv("STITCHAX_SD_CKPT", "none")
+    with pytest.raises(SystemExit, match="SD checkpoint"):
+        out.main(argv)
+    monkeypatch.delenv("STITCHAX_SD_CKPT")
+    with pytest.raises(SystemExit, match="does not exist"):
+        out.main(argv + ["--sd_ckpt", str(tmp_path / "missing.pt")])
     assert not any(tmp_path.iterdir())
 
 
