@@ -63,6 +63,21 @@ Phases, each printing one JSON line before the next begins:
                          at the 512x768 canvas in fp32 (TF32 off), ms per
                          step, peak memory, finite; not held to stitchax
                          (no such weights in the repository)
+  kernels_backward       K1, K3 and K4 inside autograd at the train step's
+                         shapes (fp32): the autograd Function's output and
+                         every input gradient against the plain version's
+                         autograd, forward and backward ms by events
+  train_vs_stitchax      one fp32 train step (TF32 off) from the trained
+                         npz on the first committed pair at 512^2 against
+                         stitchax's jitted step on the CPU
+                         (tests/torch_reference/train_stitchax_fp32.npz):
+                         losses, grad_norm, every gradient leaf's norm, kept
+                         leaves whole, and after the update
+  train                  python -m stitchax_torch.train for 4 steps on the
+                         committed split (checkpoints in a temporary
+                         directory outside the repository), --resume from
+                         step 2, --remat, final_ckpt.npz stitching a demo
+                         pair, and a warm step's split
 
 Then the kernel table (one JSON object), the nvidia-smi line, and the final
 `{"ok": true, "device": ...}` line. Any failed phase exits non-zero without
@@ -72,7 +87,8 @@ the final line. Imports nothing of JAX or of the JAX package.
 
 instead traces one warm bf16 stitch of the same pair (with fast_cv_g8, or
 the named configuration; `--config evaluate`: one warm batch of the
-evaluation, 12 pairs in fp32) with torch.profiler and prints where the
+evaluation, 12 pairs in fp32; `--config train`: one warm fp32 train step)
+with torch.profiler and prints where the
 device time goes (top kernels by device time, the device's busy share),
 optionally writing a Chrome trace.
 """
@@ -1524,11 +1540,14 @@ def _busy_us(intervals) -> float:
 def profile_phase(img1, img2, trace_path=None, config=FAST) -> None:
     """One warm bf16 stitch of the configuration under torch.profiler, or
     with config "evaluate" one warm batch of the evaluation (the committed
-    split's 12 pairs at 512^2, fp32 nets)."""
+    split's 12 pairs at 512^2, fp32 nets), or with config "train" one warm
+    fp32 train step (512^2, batch 1, TF32 off)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if config == "evaluate":
+    if config == "train":
+        run = profile_train_step()
+    elif config == "evaluate":
         from stitchax_torch.align.adapter import AlignConfig
         from stitchax_torch.data.udis import PrefetchLoader, UDISDataset
         from stitchax_torch.evaluate import load_models, make_eval_step
@@ -1664,6 +1683,568 @@ def sd15_widths_phase():
                            "pixels outside the hole moved")
 
 
+# ------------------------------- training ------------------------------------
+
+TRAIN_REFERENCE = "tests/torch_reference/train_stitchax_fp32.npz"
+TRAIN_SIZE = 512
+# kernel calls of one train step (512^2, batch 1, fp32), per FlowFormer++
+# call (B, N, C, heads, calls): the context encoder (img1) and the feature
+# encoder (img1, img2), stages 1 and 2, and the cost perceiver's three
+# vertical blocks over 8 latents. A step calls FlowFormer++ twice: forward
+# under autograd, then backward under no_grad for the occlusion mask
+TRAIN_GSA_CALLS = [(1, 128 * 128, 128, 4, 3), (1, 64 * 64, 256, 8, 3),
+                   (8, 64 * 64, 128, 8, 3)]
+TRAIN_WINDOW_CALLS = [(1, 128, 128, 128, 4, True, 3),
+                      (1, 64, 64, 256, 8, True, 3),
+                      (8, 64, 64, 128, 8, False, 3)]
+TRAIN_COST_P = 64 * 64
+FLOW_CALLS_PER_STEP = 2
+EXPECT_TRAIN_LAUNCHES = {"gsa_attention": 18, "cost_lookup": 24,
+                         "window_attention": 18, "tps_grid": 0}
+# of those, the forward under autograd's (the kernels' autograd Functions,
+# library.grad_launches): the calls of the tables above, once each. The
+# per-step forward / backward ms are weighted by these tables, so the step
+# fails unless its counted launches under grad equal their sums
+EXPECT_TRAIN_GRAD_LAUNCHES = {
+    "gsa_attention": sum(c[-1] for c in TRAIN_GSA_CALLS),
+    "cost_lookup": DECODER_ITERS,
+    "window_attention": sum(c[-1] for c in TRAIN_WINDOW_CALLS),
+    "tps_grid": 0}
+# the autograd Function's gradients against the plain version's autograd
+# on the same inputs: both differentiate the plain version at the same
+# saved inputs, so they differ only by the order of atomic adds (K3's
+# scatter of the cost maps' gradient), relative to the largest |gradient|
+# (an H100 read 0: equal)
+TRAIN_GRAD_TOL = 1e-5
+# one fp32 train step (TF32 off) on the card against stitchax's jitted step
+# on the CPU (TRAIN_REFERENCE, the same pair and weights); see PERF.md
+# section 2 for the readings these hold with ~10x headroom
+TRAIN_STITCHAX_TOL = {
+    "loss_rel": 3e-5,          # total, photometric, rigid, border: 2.1e-6
+    "grad_norm_rel": 5e-3,     # the raw gradients' global norm: 6.8e-4
+    "leaf_norm_rel": 2e-2,     # each leaf's gradient norm, floored: 1.3e-3
+    "leaf_l2_rel_homo": 2e-2,  # the kept leaves' whole gradients: 1.1e-3
+    "leaf_l2_rel_flow": 1e-2,  # 9.9e-4
+    # after the update, in units of lr0 (AdamW's first step is ~lr0 sign(g)
+    # but where |g| is near eps): the worst element, 0.011 (0.179 on the
+    # CPU), and the share off by more than 0.01 lr0, 1.0% (0.6% on the CPU)
+    "updated_lr0": 0.5,
+    "updated_off_share": 0.1,
+}
+# --resume from step 2 to 4 against the run that did not stop, and --remat's
+# first loss against the plain run's: the card's atomics and convolution
+# algorithms make two runs of one step differ by float rounding. After the
+# update an element differs by up to a few learning rates (~1.3e-7 at
+# these steps) where its gradient is near AdamW's eps, i.e. up to ~1e-3
+# of the 1e-3 floor of a tensor's scale (H100 readings 1.7e-5 to 1.8e-4;
+# the losses equal to 1.1e-6)
+TRAIN_RESUME_TOL = {"param_max_rel": 5e-3, "loss_rel": 1e-4}
+
+
+def _train_models(device="cuda"):
+    """The shipped FlowFormer++ (upsample_all) and homography net at 512^2
+    from the trained npz, on the card: (the npz's tree, the train state,
+    the train step, (homo, flow))."""
+    from stitchax_torch import convert
+    from stitchax_torch.align.adapter import AlignConfig
+    from stitchax_torch.models.flowformer import FlowFormer, FlowFormerConfig
+    from stitchax_torch.models.udis2 import UDIS2HomographyNet
+    from stitchax_torch.train import (LossConfig, OptimConfig,
+                                      create_train_state, make_train_step)
+
+    tree = convert.load_npz(CKPT)
+    homo = convert.load_jax_params(UDIS2HomographyNet(TRAIN_SIZE),
+                                   tree["homo"]).to(device)
+    flow = convert.load_jax_params(FlowFormer(FlowFormerConfig(
+        upsample_all=True)), tree["flow"]).to(device)
+    state, tx = create_train_state({"homo": homo, "flow": flow},
+                                   OptimConfig())
+    step = make_train_step(homo, flow, tx, AlignConfig(), LossConfig())
+    return tree, state, step, (homo, flow)
+
+
+def _train_pair(device="cuda"):
+    """The first committed synthetic pair at 512^2, as the loader reads it."""
+    import torch
+
+    from stitchax_torch.data.udis import UDISDataset
+
+    item = UDISDataset(os.path.join(REPO, SYNTH), phase="testing",
+                       size=(TRAIN_SIZE, TRAIN_SIZE))[0]
+    return (item["name"], item["image1"], item["image2"],
+            *(torch.from_numpy(item[k][None]).to(device)
+              for k in ("image1", "image2")))
+
+
+def _grad_check(fn, plain, leaves, g_out):
+    """(max |out - plain out|, max relative |grad - plain grad| over the
+    leaves) for the kernel wrapper `fn` and the plain version, both under
+    autograd on the same leaves and upstream gradient."""
+    import torch
+
+    out = fn()
+    grads = torch.autograd.grad(out, leaves, g_out)
+    ref = plain()
+    ref_grads = torch.autograd.grad(ref, leaves, g_out)
+    e_out = (out - ref).abs().max().item()
+    e_grad = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                 for a, b in zip(grads, ref_grads))
+    return e_out, e_grad, out
+
+
+def _fwd_bwd_ms(fn, leaves, g_out, iters=5):
+    """(forward ms under autograd, backward ms) by CUDA events."""
+    import torch
+
+    fwd = cuda_time(fn, iters=iters, warmup=2)
+    out = fn()
+    bwd = cuda_time(lambda: torch.autograd.grad(out, leaves, g_out,
+                                                retain_graph=True),
+                    iters=iters, warmup=2)
+    return fwd, bwd
+
+
+def train_kernel_rows(launches, grad_launches):
+    """K1, K3 and K4 inside autograd at the train step's shapes (fp32): the
+    autograd Function's output and every input gradient against the plain
+    version's autograd on the card for a seeded upstream gradient, and
+    forward / backward ms by events, per call and summed over a step by
+    the shape tables' calls; `launches` / `grad_launches` are one step's
+    counted launches (all / under grad, from `train_vs_stitchax`)."""
+    import torch
+
+    from stitchax_torch.ops.kernels import (cost_lookup, gsa_attention,
+                                            window_attention as wa)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows, detail = {}, []
+
+    def add(name, entry, calls):
+        r = rows.setdefault(name, {
+            "launches_per_step": launches[name],
+            "forward_launches_under_grad": grad_launches[name],
+            "forward_ms": 0.0, "backward_ms": 0.0, "plain_forward_ms": 0.0,
+            "plain_backward_ms": 0.0, "max_abs_err": 0.0,
+            "max_grad_rel_err": 0.0,
+            "backward": "the plain version differentiated (autograd), "
+                        "as stitchax's"})
+        for k in ("forward_ms", "backward_ms", "plain_forward_ms",
+                  "plain_backward_ms"):
+            r[k] += calls * entry[k]
+        r["max_abs_err"] = max(r["max_abs_err"], entry["max_abs_err"])
+        r["max_grad_rel_err"] = max(r["max_grad_rel_err"],
+                                    entry["max_grad_rel_err"])
+        detail.append({**entry, "calls_under_grad": calls})
+
+    def leaf(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=g) * scale
+                ).requires_grad_(True)
+
+    for B, N, C, heads, calls in TRAIN_GSA_CALLS:
+        q, k, v = leaf(B, N, C), leaf(B, GSA_KEYS, C), leaf(B, GSA_KEYS, C)
+        g_out = torch.randn(B, N, C, device=dev, generator=g)
+        fn = lambda: gsa_attention.gsa_attention(q, k, v, heads=heads)
+        plain = lambda: gsa_attention.gsa_attention_plain(q, k, v,
+                                                          heads=heads)
+        e, eg, _ = _grad_check(fn, plain, (q, k, v), g_out)
+        f, b = _fwd_bwd_ms(fn, (q, k, v), g_out)
+        pf, pb = _fwd_bwd_ms(plain, (q, k, v), g_out, iters=3)
+        add("gsa_attention", {
+            "kernel": "gsa_attention", "B": B, "N": N, "C": C,
+            "heads": heads, "dtype": "float32", "max_abs_err": e,
+            "tol": TOL["gsa_attention_fp32"], "max_grad_rel_err": eg,
+            "grad_tol": TRAIN_GRAD_TOL, "forward_ms": f, "backward_ms": b,
+            "plain_forward_ms": pf, "plain_backward_ms": pb}, calls)
+        del q, k, v, g_out
+
+    cm = leaf(TRAIN_COST_P, COST_HW, COST_HW)
+    coords = (torch.rand(TRAIN_COST_P, 2, device=dev, generator=g)
+              * (COST_HW + 12) - 6).requires_grad_(True)
+    win = 2 * COST_R + 1
+    g_out = torch.randn(TRAIN_COST_P, win * win, device=dev, generator=g)
+    fn = lambda: cost_lookup.cost_lookup(cm, coords, COST_R)
+    plain = lambda: cost_lookup.cost_lookup_plain(cm, coords, COST_R)
+    e, eg, _ = _grad_check(fn, plain, (cm, coords), g_out)
+    # the decoder detaches the coordinates: the step's backward is the
+    # cost maps' gradient alone
+    f, b = _fwd_bwd_ms(lambda: cost_lookup.cost_lookup(
+        cm, coords.detach(), COST_R), (cm,), g_out)
+    pf, pb = _fwd_bwd_ms(lambda: cost_lookup.cost_lookup_plain(
+        cm, coords.detach(), COST_R), (cm,), g_out, iters=3)
+    add("cost_lookup", {
+        "kernel": "cost_lookup", "P": TRAIN_COST_P, "H2": COST_HW,
+        "W2": COST_HW, "r": COST_R, "dtype": "float32", "max_abs_err": e,
+        "tol": TOL["cost_lookup"], "max_grad_rel_err": eg,
+        "grad_tol": TRAIN_GRAD_TOL, "forward_ms": f, "backward_ms": b,
+        "plain_forward_ms": pf, "plain_backward_ms": pb}, DECODER_ITERS)
+    del cm, coords, g_out
+
+    ws = WINDOW_WS
+    for B, H, W, C, heads, fused, calls in TRAIN_WINDOW_CALLS:
+        T = ws * ws
+        if fused:       # leaves: the fused qkv product and its bias
+            qkv, bias = leaf(B, H, W, 3 * C), leaf(3 * C, scale=0.3)
+            leaves = (qkv, bias)
+
+            def args():
+                qx, kx, vx = qkv.split(C, -1)
+                qb, kb, vb = bias.split(C)
+                return qx, kx, vx, qb.expand(T, C), kb.expand(T, C), vb[None]
+        else:
+            leaves = (leaf(B, H, W, C), leaf(B, H, W, C), leaf(B, H, W, C),
+                      leaf(T, C, scale=0.3), leaf(T, C, scale=0.3),
+                      leaf(1, C, scale=0.3))
+            args = lambda: leaves
+        g_out = torch.randn(B, H, W, C, device=dev, generator=g)
+        fn = lambda: wa.window_attention(*args(), heads=heads, ws=ws)
+        plain = lambda: wa.window_attention_plain(*args(), heads=heads,
+                                                  ws=ws)
+        e, eg, _ = _grad_check(fn, plain, leaves, g_out)
+        f, b = _fwd_bwd_ms(fn, leaves, g_out)
+        pf, pb = _fwd_bwd_ms(plain, leaves, g_out, iters=3)
+        add("window_attention", {
+            "kernel": "window_attention", "B": B, "H": H, "W": W, "C": C,
+            "heads": heads, "fused_qkv": fused, "dtype": "float32",
+            "max_abs_err": e, "tol": TOL["window_attention_fp32"],
+            "max_grad_rel_err": eg, "grad_tol": TRAIN_GRAD_TOL,
+            "forward_ms": f, "backward_ms": b, "plain_forward_ms": pf,
+            "plain_backward_ms": pb}, calls)
+        del leaves, g_out
+    torch.cuda.empty_cache()
+    return rows, detail
+
+
+def kernels_backward_phase(smi, launches, grad_launches):
+    rows, detail = train_kernel_rows(launches, grad_launches)
+    bad = sorted({d["kernel"] for d in detail
+                  if not (d["max_abs_err"] <= d["tol"]
+                          and d["max_grad_rel_err"] <= d["grad_tol"])})
+    emit({"phase": "kernels_backward", "card": smi, "calls": detail,
+          "per_step": rows, "ok": not bad})
+    if bad:
+        raise RuntimeError(f"kernels under autograd disagree with their "
+                           f"plain versions' autograd: {bad}")
+    return rows
+
+
+def _flat_stitchax(tree):
+    """A {model: stitchax variables} tree -> {stitchax key string: numpy}."""
+    from stitchax_torch.convert import _flatten, _keystr
+
+    return {_keystr(p): np.asarray(a, np.float32) for p, a in _flatten(tree)}
+
+
+def train_vs_stitchax_phase():
+    """One fp32 train step (TF32 off) from results/ckpt_r05_bf16.npz on the
+    first committed pair at 512^2, against stitchax's jitted step on the
+    same input (TRAIN_REFERENCE): losses, grad_norm, every leaf's gradient
+    norm (BatchNorm statistics included), the kept leaves' whole gradients
+    and their values after the update. Returns the step's launches, all
+    and under grad (library.launches, library.grad_launches)."""
+    import torch
+
+    from stitchax_torch.ops.kernels import library
+    from stitchax_torch.train import stitchax_tree
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    tree, state, step, nets = _train_models()
+    name, i1, i2, a, b = _train_pair()
+    with np.load(os.path.join(REPO, TRAIN_REFERENCE)) as f:
+        ref = {k: f[k] for k in f.files}
+    sums = [int(i1.astype(np.int64).sum()), int(i2.astype(np.int64).sum())]
+    if name != str(ref["name"]) or sums != ref["image_sums"].tolist():
+        raise RuntimeError(f"train_vs_stitchax: input {name} {sums} is not "
+                           f"the reference's {ref['name']} "
+                           f"{ref['image_sums'].tolist()}")
+    library.reset_launches()
+    metrics, grads = step.loss_and_grads(state, a, b)
+    torch.cuda.synchronize()
+    launches = dict(library.launches)
+    grad_launches = dict(library.grad_launches)
+    res_masks = _threshold_flips(*nets, a, b, ref)
+    state, m2 = step(state, a, b)
+    got = {k: float(v) for k, v in metrics.items()}
+    got["grad_norm"] = float(m2["grad_norm"])
+    grads = _flat_stitchax(stitchax_tree(grads))
+    updated = _flat_stitchax(stitchax_tree(state.params))
+    start = _flat_stitchax({k: tree[k] for k in ("flow", "homo")})
+    res = {"phase": "train_vs_stitchax", "pair": name, "dtype": "float32",
+           "tf32": torch.backends.cudnn.allow_tf32,
+           "reference": TRAIN_REFERENCE, "metrics": got,
+           "stitchax_metrics": {k: float(ref[f"metric/{k}"]) for k in got},
+           "launches_per_step": launches,
+           "forward_launches_under_grad": grad_launches, "leaves": len(grads),
+           **res_masks}
+    for k in ("total", "photometric", "rigid", "border"):
+        r = float(ref[f"metric/{k}"])
+        res[f"{k}_rel"] = abs(got[k] - r) / abs(r)
+    res["loss_rel"] = max(res[f"{k}_rel"] for k in
+                          ("total", "photometric", "rigid", "border"))
+    r = float(ref["metric/grad_norm"])
+    res["grad_norm_rel"] = abs(got["grad_norm"] - r) / r
+    floor = 1e-6 * r
+    keys = [k[len("gradnorm/"):] for k in ref if k.startswith("gradnorm/")]
+    if sorted(keys) != sorted(grads):
+        raise RuntimeError("train_vs_stitchax: other gradient leaves than "
+                           "stitchax's")
+    norm_err = {k: abs(float(np.linalg.norm(grads[k]))
+                       - float(ref[f"gradnorm/{k}"]))
+                / (float(ref[f"gradnorm/{k}"]) + floor) for k in keys}
+    worst = max(norm_err, key=norm_err.get)
+    res.update(leaf_norm_rel=norm_err[worst], leaf_norm_worst=worst,
+               batch_stats_leaves=sum("['batch_stats']" in k for k in keys),
+               batch_stats_norm_rel=max(e for k, e in norm_err.items()
+                                        if "['batch_stats']" in k))
+    kept = [k[len("grad/"):] for k in ref if k.startswith("grad/")]
+    for model in ("homo", "flow"):
+        res[f"leaf_l2_rel_{model}"] = max(
+            float(np.linalg.norm(grads[k] - ref[f"grad/{k}"]))
+            / (float(np.linalg.norm(ref[f"grad/{k}"])) + floor)
+            for k in kept if k.startswith(f"['{model}']"))
+    lr0 = 3.125e-6 / 25
+    worst_u, off, n, unmoved = 0.0, 0, 0, []
+    for k in kept:
+        d = np.abs(updated[k] - ref[f"updated/{k}"])
+        worst_u = max(worst_u, float(
+            (d - 1e-6 * np.abs(ref[f"updated/{k}"]).max()).max()) / lr0)
+        off += int((d > 0.01 * lr0).sum())
+        n += d.size
+        if not np.any(updated[k] != start[k]):
+            unmoved.append(k)
+    res.update(updated_lr0=worst_u, updated_off_share=off / n,
+               unmoved_leaves=unmoved)
+    want = dict(EXPECT_TRAIN_LAUNCHES)
+    if launches != want or grad_launches != EXPECT_TRAIN_GRAD_LAUNCHES:
+        emit(res)
+        raise RuntimeError(f"train_vs_stitchax: launches per step "
+                           f"{launches} ({grad_launches} under grad), "
+                           f"expected {want} ({EXPECT_TRAIN_GRAD_LAUNCHES})")
+    if unmoved:
+        emit(res)
+        raise RuntimeError(f"train_vs_stitchax: leaves did not move: "
+                           f"{unmoved}")
+    _check(res, dict(TRAIN_STITCHAX_TOL), "train_vs_stitchax")
+    del state, step, grads
+    torch.cuda.empty_cache()
+    return launches, grad_launches
+
+
+def _threshold_flips(homo, flow, a, b, ref):
+    """Pixels where the step's hard thresholds fell otherwise than in
+    stitchax's step (the reference's packed masks): the occlusion mask
+    (occ >= 0.5), each prediction's |flow| < max_flow, and the coverage
+    support of the homography warp (the interior sampler's edge)."""
+    import torch
+
+    from stitchax_torch.align.adapter import AlignConfig
+    from stitchax_torch.train import LossConfig, align_train_forward
+    from stitchax_torch.train import occlusion_mask
+
+    cfg = AlignConfig()
+    with torch.no_grad():
+        fwd = align_train_forward(homo, flow, a, b, cfg)
+        occ = occlusion_mask(flow, fwd, a, cfg)[0, ..., 0] > 0.5
+        valid = torch.stack([(f * f).sum(-1).sqrt() < LossConfig().max_flow
+                             for f in fwd["flow_predictions"]])[:, 0]
+        cover = fwd["output_H"][0, ..., 3] > 0
+    out = {}
+    for k, m in (("occ", occ), ("valid_flow", valid), ("cover", cover)):
+        m = m.cpu().numpy()
+        want = np.unpackbits(ref[f"mask/{k}"])[:m.size].reshape(m.shape)
+        out[f"{k}_flipped_px"] = int((m != want.astype(bool)).sum())
+        out[f"{k}_px"] = int(m.sum())
+    return out
+
+
+def _metrics_log(ckpt_dir):
+    with open(os.path.join(ckpt_dir, "train_metrics.jsonl")) as f:
+        return {r["step"]: r for r in map(json.loads, f)}
+
+
+def _run_train_cli(argv):
+    """python -m stitchax_torch.train in this process (so the kernels'
+    launch counts are read), restoring the signal handlers it sets."""
+    import signal
+
+    from stitchax_torch.train.__main__ import main as train_main
+
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                  signal.SIGINT)}
+    try:
+        rc = train_main(argv)
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    if rc != 0:
+        raise RuntimeError(f"train CLI {argv} returned {rc}")
+
+
+def train_phase():
+    """The trainer's CLI on the card: 4 steps from the trained npz on a
+    temporary data dir whose training/ is the committed 12-pair split,
+    checkpoints every 2 steps into a temporary directory outside the repo;
+    then --resume from step 2 to 4 (equal to the run that did not stop),
+    --remat for one step (its loss equal to the plain run's first, and its
+    peak), final_ckpt.npz stitching a demo pair through
+    StitchModels.from_npz, and a warm step's split: forward under autograd,
+    the no-grad backward flow call, the backward pass, the update. Returns
+    the split."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from stitchax_torch.ops.kernels import library
+    from stitchax_torch.run.stitcher import StitchModels, Stitcher, load_image
+
+    tmp = tempfile.mkdtemp(prefix="stitchax_torch_train_")
+    try:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        os.symlink(os.path.join(REPO, SYNTH, "testing"),
+                   os.path.join(data, "training"))
+        base = ["--data_dir", data, "--panel_every", "0", "--log_every", "1",
+                "--device", "cuda:0", "--init_npz", CKPT, "--num_steps"]
+        run_a, run_b, run_c = (os.path.join(tmp, d) for d in "abc")
+        library.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _run_train_cli(base + ["4", "--save_every", "2", "--ckpt_dir",
+                               run_a])
+        run_s = time.perf_counter() - t0
+        launches = dict(library.launches)
+        grad_launches = dict(library.grad_launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log_a = _metrics_log(run_a)
+        if sorted(log_a) != [1, 2, 3, 4]:
+            raise RuntimeError(f"train: logged steps {sorted(log_a)}")
+        keys = ("total", "photometric", "rigid", "border", "grad_norm")
+        if not all(math.isfinite(log_a[s][k]) for s in log_a for k in keys):
+            raise RuntimeError(f"train: metrics not finite: {log_a}")
+        step_s = [log_a[s]["t"] - log_a[s - 1]["t"] for s in (2, 3, 4)]
+        want = {k: 4 * v for k, v in EXPECT_TRAIN_LAUNCHES.items()}
+        want_grad = {k: 4 * v for k, v in EXPECT_TRAIN_GRAD_LAUNCHES.items()}
+        if launches != want or grad_launches != want_grad:
+            raise RuntimeError(f"train: launches over 4 steps {launches} "
+                               f"({grad_launches} under grad), expected "
+                               f"{want} ({want_grad})")
+        a4 = torch.load(os.path.join(run_a, "step_00000004.pt"),
+                        weights_only=True)
+        from stitchax_torch import convert
+        tree = convert.load_npz(CKPT)
+        init = {f"{k}.{n}": torch.from_numpy(np.ascontiguousarray(v))
+                for k in ("flow", "homo")
+                for n, v in convert.params_from_jax(tree[k]).items()}
+        moved = sum(bool((a4["params"][k] != v).any())
+                    for k, v in init.items())
+
+        torch.cuda.reset_peak_memory_stats()
+        _run_train_cli(base + ["4", "--save_every", "2", "--ckpt_dir", run_b,
+                               "--resume", os.path.join(
+                                   run_a, "step_00000002.pt")])
+        b4 = torch.load(os.path.join(run_b, "step_00000004.pt"),
+                        weights_only=True)
+        log_b = _metrics_log(run_b)
+        resume_param = max(
+            ((b4["params"][k] - p).abs().max()
+             / p.abs().max().clamp(min=1e-3)).item()
+            for k, p in a4["params"].items())
+        resume_loss = max(abs(log_b[s]["total"] - log_a[s]["total"])
+                          / abs(log_a[s]["total"]) for s in (3, 4))
+
+        torch.cuda.reset_peak_memory_stats()
+        _run_train_cli(base + ["1", "--save_every", "1", "--ckpt_dir", run_c,
+                               "--remat"])
+        remat_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log_c = _metrics_log(run_c)
+        remat_loss = abs(log_c[1]["total"] - log_a[1]["total"]) / abs(
+            log_a[1]["total"])
+
+        models = StitchModels.from_npz(os.path.join(run_a, "final_ckpt.npz"),
+                                       device="cuda", config=FAST)
+        out = Stitcher(models, device="cuda", config=FAST).stitch(
+            load_image(os.path.join(REPO, "demo_data", "demo1",
+                                    "input1.jpg")),
+            load_image(os.path.join(REPO, "demo_data", "demo1",
+                                    "input2.jpg")))
+        check_finite(out)
+        final_bytes = os.path.getsize(os.path.join(run_a, "final_ckpt.npz"))
+        ckpt_bytes = os.path.getsize(os.path.join(run_a, "step_00000004.pt"))
+        del models, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    split = train_step_split()
+    res = {"phase": "train", "steps": 4, "image_size": TRAIN_SIZE,
+           "batch": 1, "dtype": "float32", "weights": WEIGHTS,
+           "run_s": run_s, "s_per_step_warm": step_s,
+           "metrics": {s: {k: log_a[s][k] for k in keys} for s in log_a},
+           "peak_mem_gib": peak, "remat_peak_mem_gib": remat_peak,
+           "launches": launches, "grad_launches": grad_launches,
+           "tensors_moved": moved,
+           "tensors": len(init), "resume_param_max_rel": resume_param,
+           "resume_loss_rel": resume_loss, "remat_loss_rel": remat_loss,
+           "final_ckpt_mib": final_bytes / 2 ** 20,
+           "step_ckpt_mib": ckpt_bytes / 2 ** 20,
+           "final_ckpt_stitch": "finite", **split}
+    if moved < 0.9 * len(init):
+        emit(res)
+        raise RuntimeError(f"train: only {moved} of {len(init)} trained "
+                           "tensors moved in 4 steps")
+    _check(res, {"resume_param_max_rel": TRAIN_RESUME_TOL["param_max_rel"],
+                 "resume_loss_rel": TRAIN_RESUME_TOL["loss_rel"],
+                 "remat_loss_rel": TRAIN_RESUME_TOL["loss_rel"]}, "train")
+    return split
+
+
+def train_step_split(warm=1, timed=3):
+    """ms of a train step's parts, warm, mean of `timed` steps."""
+    import torch
+
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    _, state, step, nets = _train_models()
+    _, _, _, a, b = _train_pair()
+    for _ in range(warm):
+        state, _ = step(state, a, b)
+    timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, _ = step(state, a, b, timings=timings)
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    out = {f"split_{k}": v / timed for k, v in timings.items()}
+    out["split_step_ms"] = step_ms
+    # the no-grad backward flow call as the step makes it (only its last
+    # prediction upsampled) and with all 12 upsampled, by CUDA events
+    from stitchax_torch.align.adapter import AlignConfig
+    from stitchax_torch.train import align_train_forward
+    _, flow = nets
+    with torch.no_grad():
+        fwd = align_train_forward(*nets, a, b, AlignConfig())
+        warp = fwd["output_H"][..., 0:3]
+        for k, every in (("backward_flow_call_ms", False),
+                         ("backward_flow_call_upsample_all_ms", True)):
+            out[k] = cuda_time(lambda: flow(warp, a, upsample_all=every),
+                               iters=timed, warmup=1)
+    del state, step, fwd, warp
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step():
+    """A function running one warm fp32 train step, for the profiler."""
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    _, state, step, _ = _train_models()
+    _, _, _, a, b = _train_pair()
+    state, _ = step(state, a, b)                         # warm-up
+    return lambda timings: step(state, a, b, timings=timings)
+
+
 def main() -> int:
     import torch
 
@@ -1725,6 +2306,14 @@ def main() -> int:
     cli_phase()
     evaluate_phase()
     sd15_widths_phase()
+
+    step_launches = train_vs_stitchax_phase()
+    train_rows = kernels_backward_phase(smi, *step_launches)
+    split = train_phase()
+    for row in rows:
+        if row["name"] in train_rows:
+            row["train"] = {**train_rows[row["name"]],
+                            "step_split_ms": split}
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -18,6 +18,12 @@ with the kernel as it is, torch with the kernel flipped (the inverse of
 stitchax/convert.py `conv_transpose_kernel`); its padding (lo, hi) maps to
 torch's padding k-1-lo and output_padding hi-lo.
 
+`params_to_jax` is the inverse of `params_from_jax`, and `save_params_npz`
+writes a tree as stitchax/convert.py:551 does (the same key strings, float32
+leaves as bf16 bit patterns rounded to nearest even, as ml_dtypes rounds;
+or, with `bf16=False`, as float32 leaves under the plain key strings,
+uncompressed, which both packages' readers take too).
+
 `load_flax_msgpack` reads flax's msgpack serialisation (e.g.
 results/transref_ckpt_r05_bf16.msgpack, written by
 `flax.serialization.to_bytes`) with numpy alone.
@@ -41,6 +47,16 @@ import torch
 def decode_bf16(bits: np.ndarray) -> np.ndarray:
     """uint16 bf16 bit patterns -> float32 (exact)."""
     return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def encode_bf16(x: np.ndarray) -> np.ndarray:
+    """float32 -> uint16 bf16 bit patterns, rounded to nearest even; NaN
+    stays a (quiet) NaN, as ml_dtypes converts."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    rounded = ((bits + (0x7FFF + ((bits >> 16) & 1))) >> 16).astype(np.uint16)
+    nan = np.isnan(np.asarray(x, np.float32))
+    return np.where(nan, (bits >> 16).astype(np.uint16) | np.uint16(0x40),
+                    rounded)
 
 
 def _key_path(key: str):
@@ -111,6 +127,60 @@ def params_from_jax(variables: Dict[str, Any],
             sd[name] = torch.tensor(np.ascontiguousarray(arr),
                                     dtype=torch.float32)
     return sd
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor],
+                  conv_transpose: Collection[str] = ()) -> Dict[str, Any]:
+    """The port's state_dict -> stitchax variables {'params': ...[,
+    'batch_stats': ...]} of float32 numpy arrays, the inverse of
+    `params_from_jax`: running_mean/var -> batch_stats mean/var, a 1-D
+    weight (a norm's) -> scale, a Linear weight (out, in) -> kernel (in,
+    out), a conv weight OIHW -> HWIO, and the weight of a module named in
+    `conv_transpose` -> flax's ConvTranspose kernel (flipped back)."""
+    tree: Dict[str, Any] = {}
+    for name, t in state_dict.items():
+        *mods, leaf = name.split(".")
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        collection = "params"
+        if leaf in ("running_mean", "running_var"):
+            collection, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight":
+            if ".".join(mods) in conv_transpose:
+                arr, leaf = arr.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
+            elif arr.ndim == 4:
+                arr, leaf = arr.transpose(2, 3, 1, 0), "kernel"
+            elif arr.ndim == 2:
+                arr, leaf = arr.T, "kernel"
+            elif arr.ndim == 1:
+                leaf = "scale"
+            else:
+                raise ValueError(f"{name}: no stitchax leaf for a "
+                                 f"{arr.ndim}-D weight")
+        node = tree.setdefault(collection, {})
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
+def _keystr(path) -> str:
+    """jax.tree_util.keystr of a path of dict keys: ['a']['b']."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def save_params_npz(path: str, tree: Dict[str, Any],
+                    bf16: bool = True) -> None:
+    """A nested dict of arrays as an npz under stitchax's key strings:
+    float32 leaves as bf16 bits under "bf16:<key>", compressed (stitchax's
+    format), or with bf16=False as they are, uncompressed (zlib saves a
+    fifth of float32 weights and takes seconds per 100 MB)."""
+    flat = {}
+    for path_, arr in sorted(_flatten(tree)):
+        key = _keystr(path_)
+        if bf16 and arr.dtype == np.float32:
+            arr, key = encode_bf16(arr), "bf16:" + key
+        flat[key] = arr
+    (np.savez_compressed if bf16 else np.savez)(path, **flat)
 
 
 def load_jax_params(module: torch.nn.Module,

@@ -1,11 +1,13 @@
-"""FlowFormer++ (PerCostFormer3) optical flow, inference only.
+"""FlowFormer++ (PerCostFormer3) optical flow.
 
 Port of stitchax/models/flowformer.py: twins context/feature encoders ->
 all-pairs cost volume -> CostPerceiverEncoder (K latent tokens per source
 pixel) -> MemoryDecoder, a Python loop of `decoder_depth` recurrent
 iterations whose local cost lookup is the CUDA kernel K3
-(`ops.kernels.cost_lookup`), with only the final flow convex-upsampled
-(`upsample_all=False`). Inputs NHWC in [0, 255].
+(`ops.kernels.cost_lookup`). Inference convex-upsamples only the final
+flow (`upsample_all=False`, as stitchax's Stitcher builds it); training
+(`upsample_all=True`, stitchax's default) upsamples every iteration's
+prediction for the sequence loss. Inputs NHWC in [0, 255].
 """
 
 from __future__ import annotations
@@ -39,6 +41,10 @@ class FlowFormerConfig:
     vert_c_dim: int = 64
     cost_encoder_res: bool = True
     lookup_radius: int = 4
+    # all `decoder_depth` predictions convex-upsampled, the mask head
+    # batched over the depth (stitchax's default, which its trainer uses);
+    # False upsamples only the last, as stitchax's Stitcher configures it
+    upsample_all: bool = False
 
 
 class CostMapPatchEmbed(nn.Module):
@@ -357,6 +363,7 @@ class DecoderIteration(nn.Module):
         c = self.cfg
         B, H1, W1, _ = coords1.shape
         Dq = c.query_latent_dim
+        coords1 = coords1.detach()      # stitchax's stop_gradient (:726)
         cost_forward = encode_flow_token(cost_maps, coords1, c.lookup_radius)
         q = self.flow_token_enc2(F.gelu(self.flow_token_enc1(cost_forward)))
         query = q.reshape(B * H1 * W1, 1, Dq)
@@ -382,7 +389,9 @@ class MemoryDecoder(nn.Module):
         self.iteration = DecoderIteration(cfg)
         self.mask_head = MaskHead()
 
-    def forward(self, cost_memory, context, cost_maps):
+    def forward(self, cost_memory, context, cost_maps, upsample_all=None):
+        if upsample_all is None:
+            upsample_all = self.cfg.upsample_all
         B, H1, W1, _ = context.shape
         net, inp = self.proj(context).split(128, -1)
         net, inp = torch.tanh(net), F.relu(inp)
@@ -392,11 +401,23 @@ class MemoryDecoder(nn.Module):
         key = self.memory_k(cost_memory)
         value = self.memory_v(cost_memory)
         coords1 = coords0
+        nets, flows_lr = [], []
         for _ in range(self.cfg.decoder_depth):
             net, coords1 = self.iteration(net, coords1, inp, attention,
                                           cost_maps, key, value, coords0)
+            if upsample_all:
+                nets.append(net)
+                flows_lr.append(coords1 - coords0)
         flow_lr = coords1 - coords0
-        return [convex_upsample_flow_b(flow_lr, self.mask_head(net))], flow_lr
+        if not upsample_all:
+            return ([convex_upsample_flow_b(flow_lr, self.mask_head(net))],
+                    flow_lr)
+        # one mask-head pass over all iterations, the depth folded into the
+        # batch (stitchax flowformer.py:806-815)
+        d = len(nets)
+        flows = convex_upsample_flow_b(
+            torch.cat(flows_lr, 0), self.mask_head(torch.cat(nets, 0)))
+        return list(flows.reshape(d, B, *flows.shape[1:]).unbind(0)), flow_lr
 
 
 class FlowFormer(nn.Module):
@@ -409,12 +430,14 @@ class FlowFormer(nn.Module):
         self.memory_encoder = MemoryEncoder(cfg)
         self.memory_decoder = MemoryDecoder(cfg)
 
-    def forward(self, image1, image2):
+    def forward(self, image1, image2, upsample_all=None):
+        """`upsample_all` None takes the config's; False upsamples only the
+        last prediction for this call."""
         image1 = 2 * (image1 / 255.0) - 1.0
         image2 = 2 * (image2 / 255.0) - 1.0
         context, _ = self.context_encoder(image1)
         memory, cost = self.memory_encoder(image1, image2, context)
-        return self.memory_decoder(memory, context, cost)
+        return self.memory_decoder(memory, context, cost, upsample_all)
 
     def bidirectional(self, image1, image2):
         """((forward preds, forward lr), (backward preds, backward lr)),

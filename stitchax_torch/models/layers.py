@@ -55,7 +55,14 @@ class Conv(nn.Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis with flax's running stats."""
+    """Inference BatchNorm over the last axis with flax's running stats.
+
+    stitchax trains its homography net with these statistics in the
+    gradient (the trained tree is `{'params', 'batch_stats'}` and the net
+    runs with `use_running_average=True`): `train_statistics` turns the
+    buffers into parameters under the same state_dict names, so they take
+    part in the gradient, the clip's norm and AdamW's update, while the
+    formula below keeps using them as running averages."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -68,6 +75,19 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         return (x - self.running_mean) * scale + self.bias
+
+    def train_statistics(self) -> None:
+        self.running_mean = nn.Parameter(self.running_mean.detach())
+        self.running_var = nn.Parameter(self.running_var.detach())
+
+
+def train_batch_statistics(module: nn.Module) -> int:
+    """`BatchNorm.train_statistics` on every BatchNorm of `module`; returns
+    how many there were."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.train_statistics()
+    return len(bns)
 
 
 class Mlp(nn.Module):

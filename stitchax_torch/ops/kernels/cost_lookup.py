@@ -4,6 +4,9 @@ Port of `cost_lookup_transposed` (stitchax/ops/pallas/cost_lookup.py:121),
 held to the semantics of stitchax's production selector form
 `encode_flow_token` (stitchax/models/flowformer.py:635). The GPU reads the
 natural (P, H2, W2) layout; the TPU's (H2, P, W2) transpose is not needed.
+Under autograd the kernel runs inside `CostLookup`, whose backward
+differentiates the plain version with respect to the cost maps and the
+coordinates, as stitchax's `_eft_t_bwd` does (flowformer.py:704).
 """
 
 from __future__ import annotations
@@ -49,10 +52,35 @@ def cost_lookup_plain(cost_maps: torch.Tensor, coords: torch.Tensor,
     return s.transpose(1, 2).reshape(P, win * win)
 
 
+class CostLookup(torch.autograd.Function):
+    """K3 forward, the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, cost_maps, coords, r):
+        ctx.save_for_backward(cost_maps, coords)
+        ctx.r = r
+        out = _launch(cost_maps, coords, r)
+        library.grad_launches["cost_lookup"] += 1
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        return (*library.plain_backward(
+            cost_lookup_plain, ctx.saved_tensors, ctx.needs_input_grad[:2],
+            grad_out, r=ctx.r), None)
+
+
 def cost_lookup(cost_maps: torch.Tensor, coords: torch.Tensor,
                 r: int = 4) -> torch.Tensor:
     if cost_maps.device.type == "cpu":
         return cost_lookup_plain(cost_maps, coords, r)
+    if library.needs_grad(cost_maps, coords):
+        return CostLookup.apply(cost_maps, coords, r)
+    return _launch(cost_maps, coords, r)
+
+
+def _launch(cost_maps, coords, r: int) -> torch.Tensor:
     # the kernel reads fp32 or bf16 coordinates as they are (widened
     # exactly, as .float() does); other dtypes are converted here
     if coords.dtype not in (torch.float32, torch.bfloat16):

@@ -4,9 +4,10 @@ Port of `gsa_attention_pallas` (stitchax/ops/pallas/gsa_attention.py:51).
 `gsa_attention` launches the CUDA kernel for CUDA tensors and takes the plain
 PyTorch version only for CPU tensors. bf16 runs on the tensor cores with P
 rounded to bf16 for the P V product (within one bf16 ulp of max |out| of
-the plain version); fp32 runs exactly in fp32 on the CUDA cores. Inference
-only: when training is ported this gets a `torch.autograd.Function` with a
-backward kernel.
+the plain version); fp32 runs exactly in fp32 on the CUDA cores. Under
+autograd the kernel runs inside `GsaAttention`, a `torch.autograd.Function`
+whose backward differentiates the plain version, as stitchax's custom_vjp
+does (stitchax/ops/pallas/gsa_attention.py:116).
 """
 
 from __future__ import annotations
@@ -35,10 +36,35 @@ def gsa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+class GsaAttention(torch.autograd.Function):
+    """K1 forward, the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads = heads
+        out = _launch(q, k, v, heads)
+        library.grad_launches["gsa_attention"] += 1
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        return (*library.plain_backward(
+            gsa_attention_plain, ctx.saved_tensors, ctx.needs_input_grad[:3],
+            grad_out, heads=ctx.heads), None)
+
+
 def gsa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return gsa_attention_plain(q, k, v, heads=heads)
+    if library.needs_grad(q, k, v):
+        return GsaAttention.apply(q, k, v, heads)
+    return _launch(q, k, v, heads)
+
+
+def _launch(q, k, v, heads: int) -> torch.Tensor:
     library.require_cuda("gsa_attention", q, k, v)
     B, N, C = q.shape
     M = k.shape[1]

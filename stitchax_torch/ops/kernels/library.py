@@ -35,13 +35,15 @@ FLOAT32, BFLOAT16 = 0, 1
 # launches of each kernel, bumped by its wrapper right after a launch
 launches: Dict[str, int] = {"gsa_attention": 0, "cost_lookup": 0,
                             "tps_grid": 0, "window_attention": 0}
+# of those, the launches made by an autograd Function's forward (under grad)
+grad_launches: Dict[str, int] = dict(launches)
 
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
     for k in launches:
-        launches[k] = 0
+        launches[k] = grad_launches[k] = 0
 
 
 def sources() -> List[Path]:
@@ -157,6 +159,25 @@ def dtype_code(dtype) -> int:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def plain_backward(plain, saved, needs, grad_out, **kwargs):
+    """The gradients of a kernel's plain version, as its autograd backward
+    returns them: `plain(*saved, **kwargs)` is recomputed under autograd
+    and differentiated against `grad_out` for the inputs whose `needs` is
+    true (None for the others). stitchax differentiates its kernels the
+    same way: the custom_vjp of each Pallas kernel takes the VJP of its
+    XLA oracle."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        out = plain(*xs, **kwargs)
+        grads = iter(torch.autograd.grad(
+            out, [x for x, n in zip(xs, needs) if n], grad_out))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+def needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def require_cuda(name: str, *tensors) -> None:

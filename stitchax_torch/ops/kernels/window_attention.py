@@ -11,6 +11,10 @@ tensors and takes the plain PyTorch version only for CPU tensors. In bf16
 the kernel runs on the tensor cores and reads each token's channels with
 16-byte loads, so it takes 16-byte aligned tensors whose strides are
 multiples of 8 elements (as the main path's are) and raises otherwise.
+Under autograd the kernel runs inside `WindowAttention`, whose backward
+differentiates the plain version for the three streams and the three
+biases: stitchax's LSA blocks are XLA (stitchax/ops/window_attention.py:52),
+so that is the gradient stitchax trains with.
 """
 
 from __future__ import annotations
@@ -78,11 +82,39 @@ def _token_stride(t: torch.Tensor, name: str) -> int:
     return s2
 
 
+class WindowAttention(torch.autograd.Function):
+    """K4 forward, the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, qx, kx, vx, q_bias, k_bias, v_bias, heads, ws):
+        ctx.save_for_backward(qx, kx, vx, q_bias, k_bias, v_bias)
+        ctx.heads, ctx.ws = heads, ws
+        out = _launch(qx, kx, vx, q_bias, k_bias, v_bias, heads, ws)
+        library.grad_launches["window_attention"] += 1
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        return (*library.plain_backward(
+            window_attention_plain, ctx.saved_tensors,
+            ctx.needs_input_grad[:6], grad_out, heads=ctx.heads,
+            ws=ctx.ws), None, None)
+
+
 def window_attention(qx, kx, vx, q_bias, k_bias, v_bias, *, heads: int,
                      ws: int) -> torch.Tensor:
     if qx.device.type == "cpu":
         return window_attention_plain(qx, kx, vx, q_bias, k_bias, v_bias,
                                       heads=heads, ws=ws)
+    if library.needs_grad(qx, kx, vx, q_bias, k_bias, v_bias):
+        return WindowAttention.apply(qx, kx, vx, q_bias, k_bias, v_bias,
+                                     heads, ws)
+    return _launch(qx, kx, vx, q_bias, k_bias, v_bias, heads, ws)
+
+
+def _launch(qx, kx, vx, q_bias, k_bias, v_bias, heads: int,
+            ws: int) -> torch.Tensor:
     # the checks read each tensor's attributes once: this host path is
     # most of an event-clocked call at the main path's small shapes
     shape, dtype, dev = qx.shape, qx.dtype, qx.device

@@ -1,0 +1,15 @@
+"""stitchax_torch.train: the alignment trainer (port of stitchax/train/).
+
+`python -m stitchax_torch.train` runs it (train.py's flags, on one card).
+"""
+
+from .losses import (LossConfig, border_zero_flow_loss, photometric_l1,
+                     rigid_motion_loss, sequence_alignment_loss,
+                     smoothness_loss)
+from .optim import (OptimConfig, OptState, Optimizer, apply_updates,
+                    fetch_optimizer, onecycle_schedule)
+from .trainer import (TrainState, align_train_forward, create_train_state,
+                      make_train_step, occlusion_mask, restore_checkpoint,
+                      save_checkpoint, stitchax_tree)
+
+__all__ = [k for k in dir() if not k.startswith("_")]

@@ -135,6 +135,8 @@ def test_wrappers_count_launches(cuda):
                          x.view(1, 4, 4, 32), b, b, b[:1], heads=2, ws=7)
     assert library.launches == {"gsa_attention": 1, "cost_lookup": 1,
                                 "tps_grid": 0, "window_attention": 1}
+    # no input needs a gradient: none of them went through autograd
+    assert library.grad_launches == dict.fromkeys(library.launches, 0)
 
 
 # K4 shapes (B, H, W, C, heads, fused, ws): the main path's (stage 1 and 2
@@ -231,3 +233,82 @@ def test_cost_lookup_kernel_at_evaluation_shapes(cuda, B):
     got = tcl.cost_lookup(cm, coords, 4)
     want = tcl.cost_lookup_plain(cm, coords, 4)
     assert torch.equal(got, want)
+
+
+# ------------------------ under autograd (training) ---------------------------
+
+def _grads_both(fn, plain, leaves, g_out):
+    """The wrapper's output and input gradients, and the plain version's
+    autograd on the same leaves, for one upstream gradient."""
+    out = fn()
+    grads = torch.autograd.grad(out, leaves, g_out)
+    ref = plain()
+    return out, grads, ref, torch.autograd.grad(ref, leaves, g_out)
+
+
+def _check_under_grad(name, fn, plain, leaves, g_out, out_tol):
+    before = library.launches[name]
+    before_grad = library.grad_launches[name]
+    out, grads, ref, ref_grads = _grads_both(fn, plain, leaves, g_out)
+    assert library.launches[name] == before + 1     # the kernel ran forward
+    assert library.grad_launches[name] == before_grad + 1   # under autograd
+    assert out.grad_fn is not None
+    torch.testing.assert_close(out, ref, atol=out_tol, rtol=0)
+    # both differentiate the plain version at the same inputs: equal up to
+    # the order of atomic adds
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, atol=1e-5 * b.abs().max().item(),
+                                   rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M,C,heads", [(1, 1000, 256, 128, 4),
+                                           (8, 700, 100, 128, 8)])
+def test_gsa_autograd_function(cuda, B, N, M, C, heads):
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g).to(cuda).requires_grad_(True)
+               for s in ((B, N, C), (B, M, C), (B, M, C)))
+    g_out = torch.randn(B, N, C, generator=g).to(cuda)
+    _check_under_grad(
+        "gsa_attention", lambda: tgsa.gsa_attention(q, k, v, heads=heads),
+        lambda: tgsa.gsa_attention_plain(q, k, v, heads=heads), (q, k, v),
+        g_out, 2e-5)
+
+
+@pytest.mark.gpu
+def test_cost_lookup_autograd_function(cuda):
+    g = torch.Generator().manual_seed(4)
+    cm = torch.randn(500, 64, 64, generator=g).to(cuda).requires_grad_(True)
+    coords = (torch.rand(500, 2, generator=g) * 76 - 6).to(cuda)
+    coords.requires_grad_(True)
+    g_out = torch.randn(500, 81, generator=g).to(cuda)
+    _check_under_grad(
+        "cost_lookup", lambda: tcl.cost_lookup(cm, coords, 4),
+        lambda: tcl.cost_lookup_plain(cm, coords, 4), (cm, coords), g_out,
+        0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_window_autograd_function(cuda, fused):
+    g = torch.Generator().manual_seed(5)
+    B, H, W, C, heads, ws = 2, 30, 33, 128, 4, 7
+    T = ws * ws
+    qkv = torch.randn(B, H, W, 3 * C, generator=g).to(cuda)
+    qkv.requires_grad_(True)
+    qb, kb = ((torch.randn(T, C, generator=g) * .3).to(cuda)
+              .requires_grad_(True) for _ in range(2))
+    vb = (torch.randn(1, C, generator=g) * .3).to(cuda).requires_grad_(True)
+    g_out = torch.randn(B, H, W, C, generator=g).to(cuda)
+
+    def streams():
+        qx, kx, vx = qkv.split(C, -1)
+        if not fused:
+            qx, kx, vx = qx.contiguous(), kx.contiguous(), vx.contiguous()
+        return qx, kx, vx, qb, kb, vb
+
+    _check_under_grad(
+        "window_attention",
+        lambda: twa.window_attention(*streams(), heads=heads, ws=ws),
+        lambda: twa.window_attention_plain(*streams(), heads=heads, ws=ws),
+        (qkv, qb, kb, vb), g_out, 2e-5)
