@@ -39,6 +39,10 @@ Phases, each printing one JSON line before the next begins:
                          (its jitted Stitcher on the CPU), committed in
                          tests/torch_reference/demo_stitchax_fp32.npz with
                          the decoded input images
+  stitch_vs_stitchax_bf16
+                         the same pairs stitched in bf16 on the card
+                         against stitchax's jitted bf16 stitch on the CPU
+                         (tests/torch_reference/demo_stitchax_bf16.npz)
   sd_vs_stitchax         the SD inpainter alone, fp32 on the card, on the
                          input and hole stitchax's inpainter got in its
                          demo1 stitch, and the diffusion configuration's
@@ -49,10 +53,11 @@ Phases, each printing one JSON line before the next begins:
                          Pillow's bytes; ms per decode and encode
   cli                    the stitch CLI (python -m stitchax_torch.out) over
                          demo_data/ into a temporary directory: fast_cv_g8
-                         in bf16, the default configuration in fp32 and
-                         the diffusion configuration in bf16 (SD fp32)
-                         through its sweep (files, value path, launches,
-                         s per pair; demo1's default-configuration arrays
+                         in bf16, the default configuration and
+                         fast_cv_g8_comp in fp32 and the diffusion
+                         configuration in bf16 (SD fp32) through its sweep
+                         (files, value path, launches, s per pair; demo1's
+                         arrays of the two composition configurations
                          against stitchax's), then the command itself
   evaluate               validate_with_model on the committed 12-pair split
                          (tests/torch_reference/udis_synth), batch 12, fp32,
@@ -78,6 +83,20 @@ Phases, each printing one JSON line before the next begins:
                          directory outside the repository), --resume from
                          step 2, --remat, final_ckpt.npz stitching a demo
                          pair, and a warm step's split
+  transref_train_vs_stitchax
+                         one fp32 TransRef train step (TF32 off) from the
+                         committed TransRef checkpoint with a seeded VGG on
+                         the first committed pair at 512^2 against
+                         stitchax's jitted step on the CPU
+                         (tests/torch_reference/
+                         transref_train_stitchax_fp32.npz): losses,
+                         gradient norms, kept leaves whole and after Adam
+  transref_train         python -m stitchax_torch.train_transref at its
+                         defaults (512^2, batch 4) for 3 steps on the
+                         committed split (in a temporary directory outside
+                         the repository): s per step, peak memory, its
+                         export stitching demo1 through the default
+                         configuration, and a warm step's split
 
 Then the kernel table (one JSON object), the nvidia-smi line, and the final
 `{"ok": true, "device": ...}` line. Any failed phase exits non-zero without
@@ -87,7 +106,8 @@ the final line. Imports nothing of JAX or of the JAX package.
 
 instead traces one warm bf16 stitch of the same pair (with fast_cv_g8, or
 the named configuration; `--config evaluate`: one warm batch of the
-evaluation, 12 pairs in fp32; `--config train`: one warm fp32 train step)
+evaluation, 12 pairs in fp32; `--config train`: one warm fp32 train step;
+`--config transref_train`: one warm fp32 TransRef train step, batch 4)
 with torch.profiler and prints where the
 device time goes (top kernels by device time, the device's busy share),
 optionally writing a Chrome trace.
@@ -113,10 +133,13 @@ SD_WEIGHTS = "results/sd_ckpt_r05.pt"
 SD_CKPT = os.path.join(REPO, SD_WEIGHTS)
 FAST, DEFAULT = "fast_cv_g8", "all_img1_with_inpaint_g12_transRef"
 DIFFUSION = "inpaint_all_area_g12_diffusion"
+# fast_cv_g8 with the composition net (the push-pull inpainter feeding it)
+COMP = "fast_cv_g8_comp"
 PHASE = {FAST: "stitch", DEFAULT: "stitch_default",
          DIFFUSION: "stitch_diffusion"}
 SD_REFERENCE = "tests/torch_reference/sd_stitchax_fp32.npz"
 REFERENCE = "tests/torch_reference/demo_stitchax_fp32.npz"
+COMP_REFERENCE = "tests/torch_reference/demo_stitchax_comp_fp32.npz"
 DEMO_PAIRS = ("demo1", "demo2")
 SEED = 0
 PAIR_HW = (384, 448)            # the demo pair's size
@@ -186,6 +209,27 @@ STITCHAX_TOL = {
     "warp2_px_off_gt1": 0,           # uint8 values off by more than 1
     "ave_fusion_psnr_db": 70.0,      # read 81.89 dB
     "ave_fusion_px_off_gt1": 0,
+}
+
+
+# the fast_cv_g8 stitch of demo1 and demo2 in bf16 on the card against
+# stitchax's bf16 stitch on the CPU (BF16_REFERENCE), the worse pair: about
+# 10x of what an H100 read (10x the squared error for the PSNRs; PERF.md
+# section 2), the canvas bounds equal, as read. Two bf16 programs round in
+# other places, and the homography net's bf16 moves H's translation by
+# ~0.4 px, which shifts whole canvases: the gap is of the order of
+# stitchax's own bf16-to-fp32 one (H 0.61 / 0.39, flow 9.0 / 8.2 px on
+# demo1 / demo2). The hard thresholds' flips (mask1, control validity;
+# ROADMAP C1 / C5) are recorded, not gated
+BF16_REFERENCE = "tests/torch_reference/demo_stitchax_bf16.npz"
+STITCHAX_BF16_TOL = {
+    "H_max_abs": 4.0,             # read 0.437 (demo2)
+    "flow_max_px": 40.0,          # read 4.62
+    "flow_mean_px": 4.0,          # read 0.377
+    "canvas_box_px": 0.0,         # read equal
+    "control_dst_max_px": 10.0,   # read 1.12, where both are valid
+    "warp2_psnr_db": 8.0,         # read 18.04 dB
+    "ave_fusion_psnr_db": 9.0,    # read 19.60 dB
 }
 
 
@@ -352,7 +396,7 @@ WINDOW_WS = 7
 ALIGN_LAUNCHES = {"gsa_attention": 9, "cost_lookup": 12,
                   "window_attention": 9}
 EXPECT_LAUNCHES = {FAST: ALIGN_LAUNCHES, DEFAULT: ALIGN_LAUNCHES,
-                   DIFFUSION: ALIGN_LAUNCHES}
+                   COMP: ALIGN_LAUNCHES, DIFFUSION: ALIGN_LAUNCHES}
 
 # the evaluation: `validate_with_model` over the committed 12-pair split
 # (tests/test_torch_eval.py) at 512^2, one batch of 12, fp32 nets. Each
@@ -401,7 +445,9 @@ JPEG_LOSS_DB = 30.0
 # canvases, the learned masks' mean |diff|, mask1 values that differ. An
 # H100 read 82.99 / 83.23 / 83.06 dB, 5.3e-7, 0 (the CPU 83.62 / 83.79 /
 # 83.64, 8.3e-7, tests/test_torch_parity.py): limits about 20x in squared
-# error and in the masks' mean
+# error and in the masks' mean. The same limits hold fast_cv_g8_comp's
+# demo1 against COMP_REFERENCE (an H100 read 82.31 / 82.50 / 82.33 dB,
+# 1.97e-6, 0; the CPU 83.37 / 83.69 / 83.40 dB, 1.49e-6)
 CLI_DEFAULT_TOL = {"warp2_psnr_db": 70.0, "ave_fusion_psnr_db": 70.0,
                    "composition_psnr_db": 70.0,
                    "learned_mask_mean_abs": 1e-5, "mask1_moved_px": 0}
@@ -1122,6 +1168,81 @@ def stitch_vs_stitchax_phase():
     _check(res, STITCHAX_TOL, "stitch_vs_stitchax")
 
 
+def stitch_vs_stitchax_bf16_phase():
+    """The port's fast_cv_g8 stitch of demo1 and demo2 in bf16 on the card
+    (the smoke's precision, as out.py runs stitchax) against stitchax's
+    jitted bf16 stitch of the same decoded pairs on the CPU (BF16_REFERENCE,
+    the inputs from REFERENCE). Hard thresholds (mask1's erosion, the
+    control points' validity; ROADMAP C1 / C5) are recorded, not gated:
+    the PSNRs gate what they move."""
+    import torch
+
+    from stitchax_torch.run.stitcher import Stitcher
+
+    st = Stitcher(build_models(torch.bfloat16, "cuda", FAST), device="cuda",
+                  config=FAST)
+    worst, pairs, card = {}, {}, {}
+    with np.load(os.path.join(REPO, REFERENCE)) as inputs, \
+            np.load(os.path.join(REPO, BF16_REFERENCE)) as data:
+        for name in DEMO_PAIRS:
+            ref = {k.split("/", 1)[1]: data[k] for k in data.files
+                   if k.startswith(name + "/")}
+            out = st.stitch(inputs[f"{name}/img1"].astype(np.float32),
+                            inputs[f"{name}/img2"].astype(np.float32))
+            check_finite(out)
+            card[name] = {k: out[k] for k in ("H", "flow")}
+            th, tw = ref["warp2"].shape[:2]
+            if (out["canvas_hw"].tolist() != ref["canvas_hw"].tolist()
+                    or out["true_hw"].tolist() != [th, tw]):
+                raise RuntimeError(f"{name}: canvas {out['canvas_hw']} / "
+                                   f"{out['true_hw']}, stitchax "
+                                   f"{ref['canvas_hw']} / {[th, tw]}")
+            fd = np.abs(out["flow"] - ref["flow"])
+            valid = out["control_valid"] & ref["control_valid"]
+            r = {"H_max_abs": float(np.abs(out["H"] - ref["H"]).max()),
+                 "flow_max_px": float(fd.max()),
+                 "flow_mean_px": float(fd.mean()),
+                 "canvas_box_px": float(np.abs(out["canvas_box"]
+                                               - ref["canvas_box"]).max()),
+                 "control_valid_moved": int((out["control_valid"]
+                                             != ref["control_valid"]).sum()),
+                 "control_dst_max_px": float(np.abs(
+                     out["control_dst"] - ref["control_dst"])[valid].max()),
+                 "mask1_moved_px": int((out["mask1"]
+                                        != ref["mask1"][:th, :tw]).sum())}
+            for key, ours in (("warp2", "output2"),
+                              ("ave_fusion", "new_blend_image")):
+                a = _u8(out[ours])
+                d = np.abs(a.astype(int) - ref[key].astype(int))
+                r[f"{key}_psnr_db"] = _psnr(a, ref[key])
+                r[f"{key}_max_level"] = int(d.max())
+                r[f"{key}_px_off_gt1"] = int((d > 1).sum())
+            pairs[name] = r
+            for k, v in r.items():
+                worse = min if k.endswith("_db") else max
+                worst[k] = worse(worst.get(k, v), v)
+    # context, not gated: the same numbers for the card's bf16 against
+    # stitchax's fp32 stitch and for stitchax's bf16 against its fp32
+    context = {}
+    with np.load(os.path.join(REPO, REFERENCE)) as fp32, \
+            np.load(os.path.join(REPO, BF16_REFERENCE)) as bf16:
+        for name in DEMO_PAIRS:
+            d = lambda k: np.abs(bf16[f"{name}/{k}"] - fp32[f"{name}/{k}"])
+            context[f"stitchax_bf16_vs_fp32/{name}"] = {
+                "H_max_abs": float(d("H").max()),
+                "flow_max_px": float(d("flow").max()),
+                "flow_mean_px": float(d("flow").mean())}
+            context[f"card_bf16_vs_stitchax_fp32/{name}"] = {
+                "H_max_abs": float(np.abs(card[name]["H"]
+                                          - fp32[f"{name}/H"]).max()),
+                "flow_max_px": float(np.abs(card[name]["flow"]
+                                            - fp32[f"{name}/flow"]).max())}
+    res = {"phase": "stitch_vs_stitchax_bf16", "config": FAST,
+           "dtype": "bfloat16", "reference": BF16_REFERENCE,
+           "pairs": pairs, "context": context, **worst}
+    _check(res, STITCHAX_BF16_TOL, "stitch_vs_stitchax_bf16")
+
+
 def sd_vs_stitchax_phase():
     """The diffusion configuration in fp32 on the card (TF32 off) against
     stitchax's outputs on the CPU (SD_REFERENCE): the SD inpainter alone on
@@ -1310,7 +1431,7 @@ def cli_phase():
     tmp = tempfile.mkdtemp(prefix="stitchax_cli_")
     res = {"phase": "cli", "data_root_path": "demo_data/", "configs": {}}
     try:
-        for config, fp32 in ((FAST, False), (DEFAULT, True),
+        for config, fp32 in ((FAST, False), (DEFAULT, True), (COMP, True),
                              (DIFFUSION, False)):
             argv = ["--inf_cfg", config, "--data_root_path", demo,
                     "--ckpt_path", CKPT, "--result_dir", tmp]
@@ -1346,11 +1467,11 @@ def cli_phase():
             if worst_db < JPEG_LOSS_DB:
                 raise RuntimeError(f"cli {config}: a file decodes "
                                    f"{worst_db} dB from its image")
-            if config == DEFAULT:
+            if config in (DEFAULT, COMP):
                 entry["vs_stitchax"] = _cli_default_vs_stitchax(
                     dict(zip([os.path.basename(r[0]) for r in results],
                              [r[1] for r in results]))["demo1"],
-                    stitcher.load_pair(jobs[0][0]))
+                    stitcher.load_pair(jobs[0][0]), config)
             res["configs"][config] = entry
             del stitcher
             torch.cuda.empty_cache()
@@ -1389,13 +1510,15 @@ def cli_phase():
     emit(res)
 
 
-def _cli_default_vs_stitchax(out, pair):
-    """The default configuration's demo1 arrays (fp32, card) against
-    stitchax's committed ones, within CLI_DEFAULT_TOL."""
+def _cli_default_vs_stitchax(out, pair, config=DEFAULT):
+    """A composition configuration's demo1 arrays (fp32, card) against
+    stitchax's committed ones (the default configuration's in REFERENCE,
+    fast_cv_g8_comp's in COMP_REFERENCE), within CLI_DEFAULT_TOL."""
     from stitchax_torch.run.stitcher import output_images
 
-    prefix = f"{DEFAULT}/demo1/"
-    with np.load(os.path.join(REPO, REFERENCE)) as data:
+    prefix = f"{config}/demo1/"
+    path = REFERENCE if config == DEFAULT else COMP_REFERENCE
+    with np.load(os.path.join(REPO, path)) as data:
         ref = {k[len(prefix):]: data[k] for k in data.files
                if k.startswith(prefix)}
     th, tw = (int(v) for v in ref["true_hw"])
@@ -1414,8 +1537,8 @@ def _cli_default_vs_stitchax(out, pair):
               if (r[k] < t if k.endswith("_db") else r[k] > t)]
     r["tol"], r["ok"] = CLI_DEFAULT_TOL, not misses
     if misses:
-        emit({"phase": "cli", "vs_stitchax": r})
-        raise RuntimeError(f"cli default vs stitchax: outside tolerance: "
+        emit({"phase": "cli", "config": config, "vs_stitchax": r})
+        raise RuntimeError(f"cli {config} vs stitchax: outside tolerance: "
                            f"{misses}")
     return r
 
@@ -1435,7 +1558,8 @@ def evaluate_phase():
     from stitchax_torch.ops.kernels import library
 
     models = load_models(CKPT, "cuda")
-    ds = UDISDataset(os.path.join(REPO, SYNTH), size=(512, 512))
+    ds = UDISDataset(os.path.join(REPO, SYNTH), phase="testing",
+                     size=(512, 512))
     t0 = time.perf_counter()
     for i in range(len(ds)):
         ds[i]
@@ -1540,13 +1664,16 @@ def _busy_us(intervals) -> float:
 def profile_phase(img1, img2, trace_path=None, config=FAST) -> None:
     """One warm bf16 stitch of the configuration under torch.profiler, or
     with config "evaluate" one warm batch of the evaluation (the committed
-    split's 12 pairs at 512^2, fp32 nets), or with config "train" one warm
-    fp32 train step (512^2, batch 1, TF32 off)."""
+    split's 12 pairs at 512^2, fp32 nets), with config "train" one warm
+    fp32 train step (512^2, batch 1, TF32 off), or with config
+    "transref_train" one warm fp32 TransRef train step (512^2, batch 4)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if config == "train":
         run = profile_train_step()
+    elif config == "transref_train":
+        run = profile_transref_train_step()
     elif config == "evaluate":
         from stitchax_torch.align.adapter import AlignConfig
         from stitchax_torch.data.udis import PrefetchLoader, UDISDataset
@@ -1554,8 +1681,8 @@ def profile_phase(img1, img2, trace_path=None, config=FAST) -> None:
 
         step = make_eval_step(load_models(CKPT, "cuda"), AlignConfig())
         batch = next(iter(PrefetchLoader(
-            UDISDataset(os.path.join(REPO, SYNTH), size=(512, 512)),
-            batch_size=EVAL_BATCH)))
+            UDISDataset(os.path.join(REPO, SYNTH), phase="testing",
+                        size=(512, 512)), batch_size=EVAL_BATCH)))
         a, b = (torch.from_numpy(batch[k]).cuda()
                 for k in ("image1", "image2"))
         run = lambda timings: step(a, b)
@@ -1816,6 +1943,8 @@ def train_kernel_rows(launches, grad_launches):
     from stitchax_torch.ops.kernels import (cost_lookup, gsa_attention,
                                             window_attention as wa)
 
+    import torch.nn.functional as F
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows, detail = {}, []
@@ -1825,13 +1954,22 @@ def train_kernel_rows(launches, grad_launches):
             "launches_per_step": launches[name],
             "forward_launches_under_grad": grad_launches[name],
             "forward_ms": 0.0, "backward_ms": 0.0, "plain_forward_ms": 0.0,
-            "plain_backward_ms": 0.0, "max_abs_err": 0.0,
+            "plain_backward_ms": 0.0, "forward_bound_ms": 0.0,
+            "library_forward_device_ms": 0.0,
+            "library_forward_backward_device_ms": 0.0,
+            "forward_bound_by": {}, "max_abs_err": 0.0,
             "max_grad_rel_err": 0.0,
             "backward": "the plain version differentiated (autograd), "
                         "as stitchax's"})
         for k in ("forward_ms", "backward_ms", "plain_forward_ms",
-                  "plain_backward_ms"):
+                  "plain_backward_ms", "forward_bound_ms"):
             r[k] += calls * entry[k]
+        for k in ("library_forward_device_ms",
+                  "library_forward_backward_device_ms"):
+            r[k] = _add(r[k], entry[k], calls)
+        by = r["forward_bound_by"]
+        by[entry["forward_bound_by"]] = by.get(
+            entry["forward_bound_by"], 0.0) + calls * entry["forward_bound_ms"]
         r["max_abs_err"] = max(r["max_abs_err"], entry["max_abs_err"])
         r["max_grad_rel_err"] = max(r["max_grad_rel_err"],
                                     entry["max_grad_rel_err"])
@@ -1840,6 +1978,14 @@ def train_kernel_rows(launches, grad_launches):
     def leaf(*shape, scale=1.0):
         return (torch.randn(*shape, device=dev, generator=g) * scale
                 ).requires_grad_(True)
+
+    def library(call, leaves, g_out):
+        """The library call's device ms: forward, and forward + backward
+        (its autograd) to the same leaves."""
+        return {"library_forward_device_ms": device_ms(call, iters=5),
+                "library_forward_backward_device_ms": device_ms(
+                    lambda: torch.autograd.grad(call(), leaves, g_out),
+                    iters=5)}
 
     for B, N, C, heads, calls in TRAIN_GSA_CALLS:
         q, k, v = leaf(B, N, C), leaf(B, GSA_KEYS, C), leaf(B, GSA_KEYS, C)
@@ -1850,12 +1996,22 @@ def train_kernel_rows(launches, grad_launches):
         e, eg, _ = _grad_check(fn, plain, (q, k, v), g_out)
         f, b = _fwd_bwd_ms(fn, (q, k, v), g_out)
         pf, pb = _fwd_bwd_ms(plain, (q, k, v), g_out, iters=3)
+        d = C // heads
+        heads_of = lambda t: t.view(B, -1, heads, d).transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            heads_of(q), heads_of(k), heads_of(v)).transpose(1, 2).reshape(
+                B, N, C)
+        fb, fby = bound_ms(4 * (2 * B * N * C + 2 * B * GSA_KEYS * C),
+                           4.0 * B * N * GSA_KEYS * C, PEAK["fp32"])
         add("gsa_attention", {
             "kernel": "gsa_attention", "B": B, "N": N, "C": C,
             "heads": heads, "dtype": "float32", "max_abs_err": e,
             "tol": TOL["gsa_attention_fp32"], "max_grad_rel_err": eg,
             "grad_tol": TRAIN_GRAD_TOL, "forward_ms": f, "backward_ms": b,
-            "plain_forward_ms": pf, "plain_backward_ms": pb}, calls)
+            "plain_forward_ms": pf, "plain_backward_ms": pb,
+            "forward_bound_ms": fb, "forward_bound_by": fby,
+            "library": "F.scaled_dot_product_attention, fp32",
+            **library(sdpa, (q, k, v), g_out)}, calls)
         del q, k, v, g_out
 
     cm = leaf(TRAIN_COST_P, COST_HW, COST_HW)
@@ -1872,13 +2028,35 @@ def train_kernel_rows(launches, grad_launches):
         cm, coords.detach(), COST_R), (cm,), g_out)
     pf, pb = _fwd_bwd_ms(lambda: cost_lookup.cost_lookup_plain(
         cm, coords.detach(), COST_R), (cm,), g_out, iters=3)
+    # the forward's bound and F.grid_sample's yardstick as for the
+    # evaluation's rows, at this P
+    c = coords.detach()
+    off = torch.arange(-COST_R, COST_R + 1, device=dev, dtype=torch.float32)
+    gx = (c[:, 0, None, None] + off[:, None]).expand(-1, -1, win)
+    gy = (c[:, 1, None, None] + off[None, :]).expand(-1, win, -1)
+    grid = torch.stack([gx, gy], -1) * (2.0 / (COST_HW - 1)) - 1.0
+    sample = lambda: F.grid_sample(
+        cm[:, None], grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True).reshape(TRAIN_COST_P, win * win)
+    steps = torch.arange(2 * COST_R + 2, device=dev)
+    f0 = torch.floor(c).long() - COST_R
+    inb = [((f0[:, i:i + 1] + steps >= 0) & (f0[:, i:i + 1] + steps < COST_HW)
+            ).sum(1) for i in (0, 1)]
+    touched = float((inb[0] * inb[1]).sum().item())
+    fb, fby = bound_ms(touched * 4 + TRAIN_COST_P * 2 * 4
+                       + TRAIN_COST_P * win * win * 4,
+                       TRAIN_COST_P * (3 * win * (win + 1) + 3 * win * win),
+                       PEAK["fp32"])
     add("cost_lookup", {
         "kernel": "cost_lookup", "P": TRAIN_COST_P, "H2": COST_HW,
         "W2": COST_HW, "r": COST_R, "dtype": "float32", "max_abs_err": e,
         "tol": TOL["cost_lookup"], "max_grad_rel_err": eg,
         "grad_tol": TRAIN_GRAD_TOL, "forward_ms": f, "backward_ms": b,
-        "plain_forward_ms": pf, "plain_backward_ms": pb}, DECODER_ITERS)
-    del cm, coords, g_out
+        "plain_forward_ms": pf, "plain_backward_ms": pb,
+        "forward_bound_ms": fb, "forward_bound_by": fby,
+        "library": "F.grid_sample, fp32, gradient to the cost maps",
+        **library(sample, (cm,), g_out)}, DECODER_ITERS)
+    del cm, coords, g_out, grid
 
     ws = WINDOW_WS
     for B, H, W, C, heads, fused, calls in TRAIN_WINDOW_CALLS:
@@ -1903,14 +2081,34 @@ def train_kernel_rows(launches, grad_launches):
         e, eg, _ = _grad_check(fn, plain, leaves, g_out)
         f, b = _fwd_bwd_ms(fn, leaves, g_out)
         pf, pb = _fwd_bwd_ms(plain, leaves, g_out, iters=3)
+        d = C // heads
+        with torch.no_grad():
+            n_win = wa.biased_windows(*args(), ws)[0].shape[:2].numel()
+
+        def sdpa():
+            # SDPA on the partitioned, biased windows; its output stays
+            # windowed, so the upstream gradient is the windows' sum
+            q, k, v = (t.reshape(-1, T, heads, d).transpose(1, 2)
+                       for t in wa.biased_windows(*args(), ws))
+            return F.scaled_dot_product_attention(q, k, v).sum()
+
+        fb, fby = bound_ms(4 * (4 * B * H * W * C + 2 * T * C + C),
+                           4.0 * n_win * T * T * C, PEAK["fp32"])
         add("window_attention", {
             "kernel": "window_attention", "B": B, "H": H, "W": W, "C": C,
             "heads": heads, "fused_qkv": fused, "dtype": "float32",
             "max_abs_err": e, "tol": TOL["window_attention_fp32"],
             "max_grad_rel_err": eg, "grad_tol": TRAIN_GRAD_TOL,
             "forward_ms": f, "backward_ms": b, "plain_forward_ms": pf,
-            "plain_backward_ms": pb}, calls)
+            "plain_backward_ms": pb, "forward_bound_ms": fb,
+            "forward_bound_by": fby,
+            "library": "F.scaled_dot_product_attention on the biased "
+                       "windows, fp32 (partition and bias included)",
+            **library(sdpa, leaves, None)}, calls)
         del leaves, g_out
+    for r in rows.values():
+        by = r["forward_bound_by"]
+        r["forward_bound_by"] = max(by, key=by.get)
     torch.cuda.empty_cache()
     return rows, detail
 
@@ -2058,8 +2256,8 @@ def _threshold_flips(homo, flow, a, b, ref):
     return out
 
 
-def _metrics_log(ckpt_dir):
-    with open(os.path.join(ckpt_dir, "train_metrics.jsonl")) as f:
+def _metrics_log(ckpt_dir, name="train"):
+    with open(os.path.join(ckpt_dir, f"{name}_metrics.jsonl")) as f:
         return {r["step"]: r for r in map(json.loads, f)}
 
 
@@ -2245,6 +2443,318 @@ def profile_train_step():
     return lambda timings: step(state, a, b, timings=timings)
 
 
+# ----------------------------- TransRef trainer -----------------------------
+
+TRANSREF_TRAIN_REFERENCE = ("tests/torch_reference/"
+                            "transref_train_stitchax_fp32.npz")
+TRANSREF_LR = 1e-4
+TRANSREF_VGG_SEED = 0
+# the TransRef CLI's defaults (train_transref.py): 512^2, batch 4
+TRANSREF_TRAIN_BATCH, TRANSREF_TRAIN_STEPS = 4, 3
+# the kept leaves of TRANSREF_TRAIN_REFERENCE (its gradients and values
+# after Adam)
+TRANSREF_KEPT = (
+    "['params']['tenc']['block1_0']['attn']['kv']['kernel']",
+    "['params']['tenc']['block1_0']['attn']['kv']['bias']",
+    "['params']['tenc']['refpa1']['pa']['offset_estimator']['scale']"
+    "['kernel']",
+    "['params']['tenc']['refpa1']['pa']['offset_estimator']['scale']"
+    "['bias']",
+    "['params']['clean']['kernel']",
+    "['params']['clean']['bias']")
+# one fp32 TransRef step (TF32 off) on the card against stitchax's jitted
+# step on the CPU (TRANSREF_TRAIN_REFERENCE: the trained TransRef, the
+# seeded VGG, the first committed pair at 512^2, stitchax's boxes); see
+# PERF.md section 2 for the readings these hold with ~10x headroom. After
+# Adam, in units of lr: where stitchax's |g| > 1e-6 (100 eps) the first
+# step is ~lr sign(g) on both sides; below it a gradient's rounding moves
+# the step by up to 2 lr, so those elements are held by their share
+TRANSREF_TRAIN_STITCHAX_TOL = {
+    "loss_rel": 5e-6,            # total, l1, perceptual, style: 4.9e-7
+    "grad_norm_rel": 2e-5,       # the raw gradients' global norm: 2.1e-6
+    "leaf_norm_rel": 7e-3,       # each of the 506 leaves' norm: 7.4e-4
+    "leaf_l2_rel": 4e-3,         # the kept leaves' whole gradients: 4.3e-4
+    "updated_g_large_lr": 7e-3,  # after Adam where |g| > 1e-6: 6.6e-4 lr
+    "updated_off_share": 2e-2,   # the share off by more than 0.01 lr: 2.0e-3
+}
+
+
+def vgg_he_params(seed=TRANSREF_VGG_SEED):
+    """flax VGG16Features params, kernels ~ N(0, 2 / fan_in), biases
+    ~ 0.01 N, from numpy (tests/test_torch_vgg.py's `vgg_params`, which
+    the references were written with)."""
+    from stitchax_torch.models.vgg import VGG16_LAYOUT
+
+    rng = np.random.default_rng(seed)
+    params, cin = {}, 3
+    for name, ch, _ in VGG16_LAYOUT:
+        params[name] = {
+            "kernel": (rng.standard_normal((3, 3, cin, ch))
+                       * np.sqrt(2.0 / (9 * cin))).astype(np.float32),
+            "bias": (0.01 * rng.standard_normal(ch)).astype(np.float32)}
+        cin = ch
+    return {"params": params}
+
+
+def _transref_step(device="cuda"):
+    """The trained TransRef and the seeded VGG on the card, Adam at
+    TRANSREF_LR: (the checkpoint's tree, the state, Adam, the step, the
+    model)."""
+    from stitchax_torch import convert
+    from stitchax_torch.models.transref import TransRefBase
+    from stitchax_torch.models.vgg import VGG16Features
+    from stitchax_torch.train.transref_trainer import (
+        create_train_state, make_transref_train_step)
+
+    tree = convert.load_flax_msgpack(TRANSREF_CKPT)
+    model = convert.load_jax_params(TransRefBase(), tree).to(device)
+    vgg = convert.load_jax_params(VGG16Features(), vgg_he_params()).to(device)
+    vgg.requires_grad_(False)
+    state, tx = create_train_state(model, TRANSREF_LR)
+    return tree, state, tx, make_transref_train_step(model, vgg, tx), model
+
+
+def _transref_batch(n, device="cuda", seed=SEED):
+    """The first n committed pairs at 512^2 in [-1, 1] and seeded holes
+    (the port's box draws): (names, pixel sums, gt, ref, mask)."""
+    import torch
+
+    from stitchax_torch.data.udis import UDISDataset
+    from stitchax_torch.train.transref_trainer import (draw_rect_boxes,
+                                                       rect_masks)
+
+    ds = UDISDataset(os.path.join(REPO, SYNTH), phase="testing",
+                     size=(TRAIN_SIZE, TRAIN_SIZE))
+    items = [ds[i] for i in range(n)]
+    px = {k: np.stack([it[k] for it in items]) for k in ("image1", "image2")}
+    unit = lambda x: torch.from_numpy(x).to(device) / 127.5 - 1.0
+    boxes = draw_rect_boxes(torch.Generator().manual_seed(seed), n,
+                            TRAIN_SIZE)
+    mask = rect_masks(*(b.to(device) for b in boxes), TRAIN_SIZE)
+    sums = [int(px[k].astype(np.int64).sum()) for k in ("image1", "image2")]
+    return ([it["name"] for it in items], sums, unit(px["image1"]),
+            unit(px["image2"]), mask)
+
+
+def transref_train_vs_stitchax_phase():
+    """One fp32 TransRef step (TF32 off) on the card from the committed
+    checkpoint, with the seeded VGG, on the first committed pair at 512^2
+    and stitchax's holes (the reference's boxes), against stitchax's jitted
+    step (TRANSREF_TRAIN_REFERENCE): the losses, the global and every
+    leaf's gradient norm, the kept leaves' whole gradients and their
+    values after Adam."""
+    import torch
+
+    from stitchax_torch.ops.kernels import library
+    from stitchax_torch.train.optim import apply_updates
+    from stitchax_torch.train.transref_trainer import (conv_transpose_names,
+                                                       rect_masks,
+                                                       to_stitchax)
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    with np.load(os.path.join(REPO, TRANSREF_TRAIN_REFERENCE)) as f:
+        ref = {k: f[k] for k in f.files}
+    names, sums, gt, img2, _ = _transref_batch(1)
+    if names != ref["names"].tolist() or sums != ref["image_sums"].tolist():
+        raise RuntimeError(f"transref_train_vs_stitchax: input {names} "
+                           f"{sums} is not the reference's")
+    tree, state, tx, step, model = _transref_step()
+    dev = gt.device
+    mask = rect_masks(*(torch.as_tensor(ref[f"box/{k}"], device=dev)
+                        for k in ("x0", "y0", "w", "h")), TRAIN_SIZE)
+    want_mask = np.unpackbits(ref["mask"])[:mask.numel()].reshape(
+        tuple(mask.shape)).astype(bool)
+    library.reset_launches()
+    metrics, grads = step.loss_and_grads(state, gt, img2, mask)
+    torch.cuda.synchronize()
+    launches = dict(library.launches)
+    updates, _ = tx.update(grads, state.opt_state, state.params)
+    apply_updates(state.params, updates)
+    ct = conv_transpose_names(model)
+    flat = lambda d: {k: v.numpy() for k, v in to_stitchax(d, ct).items()}
+    g_norm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                  for g in grads.values())))
+    grads, updated = flat(grads), flat(state.params)
+    start = _flat_stitchax(tree)
+    res = {"phase": "transref_train_vs_stitchax", "pair": names[0],
+           "image_size": TRAIN_SIZE, "batch": 1, "dtype": "float32",
+           "tf32": torch.backends.cudnn.allow_tf32,
+           "reference": TRANSREF_TRAIN_REFERENCE,
+           "mask_moved_px": int(((mask.cpu().numpy() > 0.5)
+                                  != want_mask).sum()),
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "grad_norm": g_norm, "launches_per_step": launches,
+           "leaves": len(grads)}
+    res["stitchax_metrics"] = {k: float(ref[f"metric/{k}"])
+                               for k in (*res["metrics"], "grad_norm")}
+    res["loss_rel"] = max(abs(v - res["stitchax_metrics"][k])
+                          / abs(res["stitchax_metrics"][k])
+                          for k, v in res["metrics"].items())
+    r = float(ref["metric/grad_norm"])
+    res["grad_norm_rel"] = abs(g_norm - r) / r
+    floor = 1e-6 * r
+    keys = [k[len("gradnorm/"):] for k in ref if k.startswith("gradnorm/")]
+    if sorted(keys) != sorted(grads):
+        raise RuntimeError("transref_train_vs_stitchax: other gradient "
+                           "leaves than stitchax's")
+    norm_err = {k: abs(float(np.linalg.norm(grads[k]))
+                       - float(ref[f"gradnorm/{k}"]))
+                / (float(ref[f"gradnorm/{k}"]) + floor) for k in keys}
+    worst = max(norm_err, key=norm_err.get)
+    res.update(leaf_norm_rel=norm_err[worst], leaf_norm_worst=worst)
+    res["leaf_l2_rel"] = max(
+        float(np.linalg.norm(grads[k] - ref[f"grad/{k}"]))
+        / (float(np.linalg.norm(ref[f"grad/{k}"])) + floor)
+        for k in TRANSREF_KEPT)
+    large = worst_u = 0.0
+    off = n = 0
+    unmoved = []
+    for k in TRANSREF_KEPT:
+        d = np.abs(updated[k] - ref[f"updated/{k}"]) / TRANSREF_LR
+        big = np.abs(ref[f"grad/{k}"]) > 1e-6
+        if big.any():
+            large = max(large, float(d[big].max()))
+        worst_u = max(worst_u, float(d.max()))
+        off += int((d > 0.01).sum())
+        n += d.size
+        if not np.any(updated[k] != start[k]):
+            unmoved.append(k)
+    res.update(updated_g_large_lr=large, updated_worst_lr=worst_u,
+               updated_off_share=off / n, unmoved_leaves=unmoved)
+    if res["mask_moved_px"] or unmoved or worst_u > 2.0 + 1e-3:
+        emit(res)
+        raise RuntimeError("transref_train_vs_stitchax: the holes differ "
+                           "from stitchax's, a kept leaf did not move, or "
+                           "an element moved by more than 2 lr")
+    _check(res, dict(TRANSREF_TRAIN_STITCHAX_TOL),
+           "transref_train_vs_stitchax")
+    del state, step, model, grads
+    torch.cuda.empty_cache()
+
+
+def transref_train_phase():
+    """python -m stitchax_torch.train_transref at its defaults (512^2,
+    batch 4, --ref_from pair) for TRANSREF_TRAIN_STEPS steps on a temporary
+    data dir whose training/ is the committed 12-pair split, into a
+    temporary directory outside the repo: s per step (the warm steps),
+    peak memory, kernel launches per step; the export loaded into the
+    port's Stitcher (the default configuration) stitching demo1 with its
+    hole inpainted, finite; then a warm step's split."""
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from stitchax_torch.ops.kernels import library
+    from stitchax_torch.run.stitcher import StitchModels, Stitcher, load_image
+    from stitchax_torch.train_transref.__main__ import main as tr_main
+
+    tmp = tempfile.mkdtemp(prefix="stitchax_torch_transref_")
+    try:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        os.symlink(os.path.join(REPO, SYNTH, "testing"),
+                   os.path.join(data, "training"))
+        run = os.path.join(tmp, "run")
+        argv = ["--data_dir", data, "--num_steps", str(TRANSREF_TRAIN_STEPS),
+                "--ckpt_dir", run, "--log_every", "1", "--ref_from", "pair",
+                "--device", "cuda:0"]
+        handlers = {sig: signal.getsignal(sig)
+                    for sig in (signal.SIGTERM, signal.SIGINT)}
+        library.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            rc = tr_main(argv)
+        finally:
+            for sig, h in handlers.items():
+                signal.signal(sig, h)
+        run_s = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"transref_train: the CLI returned {rc}")
+        launches = dict(library.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log = _metrics_log(run, "transref")
+        keys = ("total", "l1", "perceptual", "style")
+        if sorted(log) != list(range(1, TRANSREF_TRAIN_STEPS + 1)) or not all(
+                math.isfinite(log[s][k]) for s in log for k in keys):
+            raise RuntimeError(f"transref_train: metrics {log}")
+        step_s = [log[s]["t"] - log[s - 1]["t"]
+                  for s in range(2, TRANSREF_TRAIN_STEPS + 1)]
+        export = os.path.join(run, "final_transref.msgpack")
+        ckpt = os.path.join(run, f"step_{TRANSREF_TRAIN_STEPS:08d}.pt")
+        sizes = {k: os.path.getsize(p) / 2 ** 20
+                 for k, p in (("export_mib", export), ("step_ckpt_mib", ckpt))}
+        models = StitchModels.from_npz(CKPT, "cuda", torch.bfloat16, DEFAULT,
+                                       transref=export)
+        demo = os.path.join(REPO, "demo_data", "demo1")
+        out = Stitcher(models, device="cuda", config=DEFAULT).stitch(
+            *(load_image(os.path.join(demo, f))
+              for f in ("input1.jpg", "input2.jpg")))
+        check_finite(out)
+        hole = out["inpaint_area_mask"] > 0.5
+        if not hole.any():
+            raise RuntimeError("transref_train: the export's stitch of demo1 "
+                               "inpainted no hole")
+        hole_share = float(hole.mean())
+        del models, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    split = transref_step_split()
+    res = {"phase": "transref_train", "steps": TRANSREF_TRAIN_STEPS,
+           "image_size": TRAIN_SIZE, "batch": TRANSREF_TRAIN_BATCH,
+           "dtype": "float32", "ref_from": "pair", "run_s": run_s,
+           "s_per_step_warm": step_s,
+           "metrics": {s: {k: log[s][k] for k in keys} for s in log},
+           "peak_mem_gib": peak,
+           "launches_per_step": {k: v / TRANSREF_TRAIN_STEPS
+                                 for k, v in launches.items()},
+           **sizes, "export_stitch": "finite",
+           "export_hole_share": hole_share,
+           **split, "ok": True}
+    emit(res)
+
+
+def transref_step_split(warm=1, timed=3):
+    """ms of a TransRef train step's parts at 512^2, batch 4 (forward, the
+    loss with the VGG's two forwards, backward, Adam; synchronized between
+    them), warm, mean of `timed` steps; and its peak memory."""
+    import torch
+
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    _, state, _, step, _ = _transref_step()
+    _, _, gt, img2, mask = _transref_batch(TRANSREF_TRAIN_BATCH)
+    for _ in range(warm):
+        state, _ = step(state, gt, img2, mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, _ = step(state, gt, img2, mask, timings=timings)
+    out = {f"split_{k}": v / timed for k, v in timings.items()}
+    out["split_step_ms"] = (time.perf_counter() - t0) * 1e3 / timed
+    out["split_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_transref_train_step():
+    """A function running one warm fp32 TransRef step (512^2, batch 4)."""
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    _, state, _, step, _ = _transref_step()
+    _, _, gt, img2, mask = _transref_batch(TRANSREF_TRAIN_BATCH)
+    state, _ = step(state, gt, img2, mask)               # warm-up
+    return lambda timings: step(state, gt, img2, mask, timings=timings)
+
+
 def main() -> int:
     import torch
 
@@ -2301,6 +2811,7 @@ def main() -> int:
     stitch_vs_cpu_phase(img1, img2)
     stitch_vs_cpu_default_phase(img1, img2)
     stitch_vs_stitchax_phase()
+    stitch_vs_stitchax_bf16_phase()
     sd_vs_stitchax_phase()
     jpeg_phase()
     cli_phase()
@@ -2310,6 +2821,8 @@ def main() -> int:
     step_launches = train_vs_stitchax_phase()
     train_rows = kernels_backward_phase(smi, *step_launches)
     split = train_phase()
+    transref_train_vs_stitchax_phase()
+    transref_train_phase()
     for row in rows:
         if row["name"] in train_rows:
             row["train"] = {**train_rows[row["name"]],

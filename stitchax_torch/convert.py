@@ -26,7 +26,12 @@ uncompressed, which both packages' readers take too).
 
 `load_flax_msgpack` reads flax's msgpack serialisation (e.g.
 results/transref_ckpt_r05_bf16.msgpack, written by
-`flax.serialization.to_bytes`) with numpy alone.
+`flax.serialization.to_bytes`) with numpy alone, and `save_flax_msgpack`
+writes a tree of arrays as `flax.serialization.to_bytes` does (the same
+bytes: keys in the dicts' order, arrays as flax's ext type 1), which flax's
+`from_bytes` and `load_flax_msgpack` both restore. A flax VGG16Features
+tree (stitchax/models/vgg.py) maps onto the port's `VGG16Features` through
+`params_from_jax` / `params_to_jax` like any other conv stack.
 
 `load_sd_container` reads a packed SD checkpoint (e.g.
 results/sd_ckpt_r05.pt, a `torch.save`d dict); `conv_params`,
@@ -308,6 +313,77 @@ def load_flax_msgpack(path: str) -> Dict[str, Any]:
     if not isinstance(tree, dict):
         raise ValueError(f"{path}: not a flax state dict")
     return tree
+
+
+def _packed_len(n: int, small: int, fix, codes) -> bytes:
+    """The header of a msgpack map / array / str / bin of n entries (or a
+    non-negative int n): the fix form below `small`, else the first of
+    `codes` (code, struct format, limit) whose limit exceeds n."""
+    if fix is not None and n < small:
+        return bytes([fix | n])
+    for code, fmt, limit in codes:
+        if n < limit:
+            return bytes([code]) + struct.pack(">" + fmt, n)
+    raise ValueError(f"msgpack: {n} entries is too many")
+
+
+_U16, _U32 = 1 << 16, 1 << 32
+
+
+def _pack(obj, out: list) -> None:
+    """Append obj's msgpack bytes (the shortest form of each, as
+    msgpack-python writes them) to `out`."""
+    if isinstance(obj, dict):
+        out.append(_packed_len(len(obj), 16, 0x80, ((0xde, "H", _U16),
+                                                    (0xdf, "I", _U32))))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        out.append(_packed_len(len(obj), 16, 0x90, ((0xdc, "H", _U16),
+                                                    (0xdd, "I", _U32))))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, str):
+        b = obj.encode()
+        out.append(_packed_len(len(b), 32, 0xa0, ((0xd9, "B", 256),
+                                                  (0xda, "H", _U16),
+                                                  (0xdb, "I", _U32))))
+        out.append(b)
+    elif isinstance(obj, bytes):
+        out.append(_packed_len(len(obj), 0, None, ((0xc4, "B", 256),
+                                                   (0xc5, "H", _U16),
+                                                   (0xc6, "I", _U32))))
+        out.append(obj)
+    elif isinstance(obj, (int, np.integer)) and 0 <= obj < (1 << 64):
+        # a shape entry: positive fixint, else the shortest unsigned form
+        out.append(_packed_len(int(obj), 128, 0x00, (
+            (0xcc, "B", 256), (0xcd, "H", _U16), (0xce, "I", _U32),
+            (0xcf, "Q", 1 << 64))))
+    elif isinstance(obj, (np.ndarray, torch.Tensor)):
+        a = (obj.detach().cpu().numpy() if isinstance(obj, torch.Tensor)
+             else obj)
+        body: list = []
+        _pack([list(a.shape), a.dtype.name, a.tobytes("C")], body)
+        body = b"".join(body)
+        n = len(body)
+        fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+        out.append(bytes([fixext[n]]) if n in fixext else _packed_len(
+            n, 0, None, ((0xc7, "B", 256), (0xc8, "H", _U16),
+                         (0xc9, "I", _U32))))
+        out.append(struct.pack(">b", _EXT_NDARRAY))
+        out.append(body)
+    else:
+        raise TypeError(f"msgpack: cannot write a {type(obj).__name__}")
+
+
+def save_flax_msgpack(path: str, tree: Dict[str, Any]) -> None:
+    """A nested dict of arrays (or tensors) as `flax.serialization.to_bytes`
+    writes it; leaves keep their dtype (float32 stays float32)."""
+    out: list = []
+    _pack(tree, out)
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
 
 
 # --------------------------- torch state dicts --------------------------------

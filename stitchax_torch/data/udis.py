@@ -27,9 +27,9 @@ from ..io.resize import resize_bilinear
 
 
 class UDISDataset:
-    def __init__(self, data_dir: str, phase: str = "testing",
-                 size: Optional[Tuple[int, int]] = None,
+    def __init__(self, data_dir: str, phase: str = "training",
                  is_test: Optional[bool] = None,
+                 size: Optional[Tuple[int, int]] = None,
                  return_depth: bool = False,
                  clip_num_data: Optional[int] = None):
         self.size = size
@@ -78,20 +78,20 @@ class UDISDataset:
 class PrefetchLoader:
     """Batches of a dataset, in order or shuffled per epoch, read by a
     thread pool while the previous batches are consumed. A failed read
-    raises in the consumer. `skip(n)` fast-forwards past the first n
-    batches of the coming epochs without reading them."""
+    raises in the consumer. `prefetch` batches are read ahead. `skip(n)`
+    fast-forwards past the first n batches of the coming epochs without
+    reading them."""
 
-    PREFETCH = 2        # batches read ahead
-
-    def __init__(self, dataset, batch_size: int = 1, num_workers: int = 8,
-                 shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = False):
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 num_workers: int = 8, seed: int = 0,
+                 drop_last: bool = False, prefetch: int = 2):
         self.ds = dataset
         self.batch_size = batch_size
-        self.num_workers = num_workers
         self.shuffle = shuffle
+        self.num_workers = num_workers
         self.seed = seed
         self.drop_last = drop_last
+        self.prefetch = prefetch
         self._epoch = 0
         self._skip = 0
 
@@ -122,7 +122,7 @@ class PrefetchLoader:
         self._epoch += 1
         batches = self._batch_indices()[self._skip:]
         self._skip = 0
-        q: Queue = Queue(maxsize=self.PREFETCH)
+        q: Queue = Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def produce(pool):

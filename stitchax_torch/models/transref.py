@@ -37,7 +37,11 @@ def _ln(dim: int) -> nn.LayerNorm:
 
 
 def _max_pool2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 max pool, stride 2, on NHWC (flax nn.max_pool, VALID)."""
+    """2x2 max pool, stride 2, on NHWC (flax nn.max_pool, VALID): a side
+    under 2 gives an empty map, as flax's does (TransRef at 128^2 pools a
+    1x1 map at 1/128)."""
+    if min(x.shape[1:3]) < 2:
+        return x[:, :x.shape[1] // 2, :x.shape[2] // 2]
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
@@ -204,7 +208,9 @@ class PA(nn.Module):
         super().__init__()
         self.offset_estimator = DynamicOffsetEstimator(2 * channels, channels)
         self.offset_conv = Conv(channels, 18, 3, padding=1, bias=False)
-        self.deform_kernel = nn.Parameter(torch.zeros(9 * channels, channels))
+        # He-normal over the (9 C, C) kernel's fan-in 9 C, as stitchax's
+        self.deform_kernel = nn.Parameter(
+            torch.randn(9 * channels, channels) * (2 / (9 * channels)) ** 0.5)
 
     def forward(self, feat, ref):
         est = self.offset_estimator(torch.cat([feat, ref], -1))

@@ -1,6 +1,8 @@
 """stitchax_torch.train: the alignment trainer (port of stitchax/train/).
 
 `python -m stitchax_torch.train` runs it (train.py's flags, on one card).
+`transref_trainer` is the TransRef trainer's step (train_transref.py's,
+run by `python -m stitchax_torch.train_transref`).
 """
 
 from .losses import (LossConfig, border_zero_flow_loss, photometric_l1,

@@ -7,9 +7,11 @@ root, bias correction at count + 1, decoupled weight decay on every
 trained tensor, the learning rate of the schedule at the update count),
 with the reference's lower-rate group for pretrained encoders
 (`twins_lr_factor`: optax's `multi_transform`, so each group is clipped by
-its own norm). It works on dicts of tensors, as optax works on trees, and
-`apply_updates` adds the updates in place. `onecycle_schedule` gives
-optax's float32 one-cycle values as the jitted train step computes them.
+its own norm). `Adam` is `optax.adam(lr)` (the TransRef trainer's), on the
+same moments code (`adam_moments`). They work on dicts of tensors, as optax
+works on trees, and `apply_updates` adds the updates in place.
+`onecycle_schedule` gives optax's float32 one-cycle values as the jitted
+train step computes them.
 """
 
 from __future__ import annotations
@@ -108,6 +110,32 @@ def clip_by_global_norm(tensors: List[torch.Tensor], clip: float
     return list(torch._foreach_mul(torch._foreach_div(tensors, norm), clip))
 
 
+def init_state(params: Dict[str, torch.Tensor]) -> OptState:
+    """Zero moments for every tensor, count 0."""
+    zeros = lambda: {k: torch.zeros_like(
+        p, memory_format=torch.preserve_format) for k, p in params.items()}
+    return OptState(count=0, mu=zeros(), nu=zeros())
+
+
+def adam_moments(g: List[torch.Tensor], mu: List[torch.Tensor],
+                 nu: List[torch.Tensor], count_inc: int, eps: float):
+    """optax.scale_by_adam on lists of tensors: the new first and second
+    moments and the direction m_hat / (sqrt(v_hat) + eps), bias-corrected
+    at `count_inc` (eps outside the root, as optax's eps_root = 0)."""
+    bc1 = float(f32(1.0) - f32(B1) ** f32(count_inc))
+    bc2 = float(f32(1.0) - f32(B2) ** f32(count_inc))
+    m = torch._foreach_add(torch._foreach_mul(g, 1.0 - B1),
+                           torch._foreach_mul(mu, B1))
+    v = torch._foreach_add(
+        torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - B2),
+        torch._foreach_mul(nu, B2))
+    m_hat = torch._foreach_div(m, bc1)
+    v_hat = torch._foreach_div(v, bc2)
+    u = torch._foreach_div(
+        m_hat, torch._foreach_add(torch._foreach_sqrt(v_hat), eps))
+    return m, v, u
+
+
 class Optimizer:
     """clip_by_global_norm -> adamw, per group of trained tensors: "rest"
     at the schedule's rate and, with `twins_lr_factor` and an
@@ -130,12 +158,7 @@ class Optimizer:
                                     (rest, 1.0)) if g]
 
     def init(self, params: Dict[str, torch.Tensor]) -> OptState:
-        return OptState(
-            count=0,
-            mu={k: torch.zeros_like(p, memory_format=torch.preserve_format)
-                for k, p in params.items()},
-            nu={k: torch.zeros_like(p, memory_format=torch.preserve_format)
-                for k, p in params.items()})
+        return init_state(params)
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: OptState,
@@ -145,23 +168,13 @@ class Optimizer:
         `tx.update(grads, opt_state, params)`."""
         cfg = self.cfg
         count_inc = state.count + 1
-        bc1 = float(f32(1.0) - f32(B1) ** f32(count_inc))
-        bc2 = float(f32(1.0) - f32(B2) ** f32(count_inc))
         lr = self.schedule(state.count)
         mu, nu, updates = dict(state.mu), dict(state.nu), {}
         for names, factor in self.groups(list(grads)):
             g = clip_by_global_norm([grads[n] for n in names], cfg.clip)
-            m = torch._foreach_add(torch._foreach_mul(g, 1.0 - B1),
-                                   torch._foreach_mul([mu[n] for n in names],
-                                                      B1))
-            v = torch._foreach_add(
-                torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - B2),
-                torch._foreach_mul([nu[n] for n in names], B2))
-            m_hat = torch._foreach_div(m, bc1)
-            v_hat = torch._foreach_div(v, bc2)
-            u = torch._foreach_div(
-                m_hat, torch._foreach_add(torch._foreach_sqrt(v_hat),
-                                          cfg.epsilon))
+            m, v, u = adam_moments(g, [mu[n] for n in names],
+                                   [nu[n] for n in names], count_inc,
+                                   cfg.epsilon)
             u = torch._foreach_add(u, torch._foreach_mul(
                 [params[n] for n in names], cfg.adamw_decay))
             step = -float(f32(lr) * f32(factor))
@@ -169,6 +182,31 @@ class Optimizer:
             for n, mi, vi, ui in zip(names, m, v, u):
                 mu[n], nu[n], updates[n] = mi, vi, ui
         return updates, OptState(count=count_inc, mu=mu, nu=nu)
+
+
+class Adam:
+    """optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8 outside the root): the
+    updates are -lr times `adam_moments`' direction."""
+
+    def __init__(self, lr: float, eps: float = 1e-8):
+        self.lr, self.eps = lr, eps
+
+    def init(self, params: Dict[str, torch.Tensor]) -> OptState:
+        return init_state(params)
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor], state: OptState,
+               params: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Tuple[Dict[str, torch.Tensor], OptState]:
+        names = list(grads)
+        m, v, u = adam_moments([grads[n] for n in names],
+                               [state.mu[n] for n in names],
+                               [state.nu[n] for n in names],
+                               state.count + 1, self.eps)
+        u = torch._foreach_mul(u, -float(f32(self.lr)))
+        return (dict(zip(names, u)),
+                OptState(count=state.count + 1, mu=dict(zip(names, m)),
+                         nu=dict(zip(names, v))))
 
 
 def apply_updates(params: Dict[str, torch.Tensor],

@@ -171,7 +171,7 @@ def test_conv_transpose_maps_flax_to_torch(rng, k, pad, torch_pad, out_pad):
     np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
-BANNED = ("jax", "flax", "ml_dtypes", "msgpack", "PIL", "stitchax")
+BANNED = ("jax", "flax", "optax", "ml_dtypes", "msgpack", "PIL", "stitchax")
 
 
 def _imports(path):

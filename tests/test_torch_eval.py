@@ -173,8 +173,8 @@ def test_udis_dataset_reads_stitchax_pixels():
     from stitchax_torch.data.udis import UDISDataset
 
     for size in (SIZE, None):
-        ours, theirs = UDISDataset(SYNTH, size=size), JUDIS(
-            SYNTH, phase="testing", size=size)
+        ours = UDISDataset(SYNTH, phase="testing", size=size)
+        theirs = JUDIS(SYNTH, phase="testing", size=size)
         assert [p[2] for p in ours.pairs] == [p[2] for p in theirs.pairs]
         for i in (0, 3):
             got, want = ours[i], theirs[i]
@@ -349,8 +349,8 @@ def test_stub_evaluation_gives_stitchax_report(tmp_path):
                                   shuffle=False, num_workers=1),
                       JStubModels(), JAlignConfig(use_fb_consistency_mask=False))
     got = validate_with_model({}, PrefetchLoader(
-        UDISDataset(str(tmp_path), size=(128, 128)), batch_size=2,
-        num_workers=1), _StubModels(),
+        UDISDataset(str(tmp_path), phase="testing", size=(128, 128)),
+        batch_size=2, num_workers=1), _StubModels(),
         AlignConfig(use_fb_consistency_mask=False))
     assert got["num_pairs"] == want["num_pairs"] == 5
     for k in REPORT_KEYS:
@@ -405,7 +405,7 @@ def test_trained_homography_net_matches_stitchax(trained_homography):
              for p in pair]
         a.append(r[0])
         b.append(r[1])
-    ds = UDISDataset(SYNTH, size=SIZE)
+    ds = UDISDataset(SYNTH, phase="testing", size=SIZE)
     for i in (0, 1):
         a.append(ds[i]["image1"])
         b.append(ds[i]["image2"])
@@ -487,8 +487,8 @@ def test_trained_evaluation_matches_stitchax():
 
     per_pair = []
     report = validate_with_model(
-        {}, PrefetchLoader(UDISDataset(SYNTH, size=SIZE), batch_size=BATCH,
-                           num_workers=4), models, align_cfg,
+        {}, PrefetchLoader(UDISDataset(SYNTH, phase="testing", size=SIZE),
+                           batch_size=BATCH, num_workers=4), models, align_cfg,
         eval_step=recording_step, per_pair=per_pair)
     warped = np.concatenate([np.clip(w, 0, 255).astype(np.uint8)
                              for w, _ in outs])

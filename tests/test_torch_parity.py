@@ -14,7 +14,14 @@ The file also holds stitchax's default configuration
 net, trained weights, fp32) on demo1, under
 "all_img1_with_inpaint_g12_transRef/demo1/"; the slow
 `test_default_config_stitch_matches_stitchax` holds the port to it, and
-`chip_smoke.py`'s `cli` phase holds the card's stitch CLI to it.
+`chip_smoke.py`'s `cli` phase holds the card's stitch CLI to it. The same
+command writes two more files: `demo_stitchax_bf16.npz`, stitchax's
+fast_cv_g8 stitch of both pairs with its nets in bf16 as out.py runs them
+(the arrays `chip_smoke.py`'s `stitch_vs_stitchax_bf16` holds the card's
+bf16 stitch to), and `demo_stitchax_comp_fp32.npz`, the fast_cv_g8_comp
+configuration (push-pull inpainter, then the composition net) on demo1 in
+fp32, which `test_comp_config_stitch_matches_stitchax` and the smoke's
+`cli` phase hold the port to.
 
 The tier-1 test feeds the committed alignment (H, flow, occlusion mask,
 canvas box) into the port's render, TPS and mix on the CPU and holds mask1
@@ -34,8 +41,13 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 REF = os.path.join(REPO, "tests", "torch_reference", "demo_stitchax_fp32.npz")
 CKPT = os.path.join(REPO, "results", "ckpt_r05_bf16.npz")
 TRANSREF = os.path.join(REPO, "results", "transref_ckpt_r05_bf16.msgpack")
+REF_BF16 = os.path.join(REPO, "tests", "torch_reference",
+                        "demo_stitchax_bf16.npz")
+REF_COMP = os.path.join(REPO, "tests", "torch_reference",
+                        "demo_stitchax_comp_fp32.npz")
 PAIRS = ("demo1", "demo2")
 CONFIG = "fast_cv_g8"
+COMP = "fast_cv_g8_comp"
 # the default configuration's reference: demo1 only
 DEFAULT, DEFAULT_PAIR = "all_img1_with_inpaint_g12_transRef", "demo1"
 # keys of each pair in the npz besides the decoded input images img1 / img2
@@ -53,11 +65,12 @@ def load_pair(name):
             for f in ("input1.jpg", "input2.jpg")]
 
 
-def stitchax_stitcher(config=CONFIG):
+def stitchax_stitcher(config=CONFIG, fp32=True):
     """stitchax's Stitcher as out.py builds it for `config`, with the
-    trained weights and its homography and flow nets called in fp32; for
-    the default configuration also the trained composition net and
-    TransRef (fp32, as `stitchax_default_reference` calls them)."""
+    trained weights and its homography and flow nets called in fp32 (with
+    `fp32=False` in bf16, as out.py calls them); for the default
+    configuration also the trained composition net and TransRef (fp32, as
+    `stitchax_default_reference` calls them)."""
     os.environ["STITCHAX_PACK"] = "rgb"
     os.environ["STITCHAX_FETCH_ALL"] = "1"
     import importlib
@@ -107,6 +120,10 @@ def stitchax_stitcher(config=CONFIG):
         output2_is_only_tps=c["output2_is_only_tps"])
     align_cfg = AlignConfig(
         use_fb_consistency_mask=icfg["use_fb_consistency_mask"])
+    if not fp32:
+        return Stitcher(models, icfg, align_cfg, tps_cfg,
+                        inpainter_name=c["inpainter"],
+                        mix_method=c["mix_method"])
     st = Stitcher(models, icfg, align_cfg, tps_cfg,
                   inpainter_name=c["inpainter"], mix_method=c["mix_method"],
                   homo_fn=lambda a, b: homo_model.apply(params["homo"], a, b),
@@ -187,6 +204,33 @@ def stitchax_reference(st, img1, img2):
         "warp1": u8(res["warp1"]), "warp2": u8(res["warp2"]),
         "ave_fusion": u8(res["ave_fusion"]),
     }
+
+
+# stitchax's bf16 stitch (out.py's precision) of both pairs: the arrays the
+# card's `stitch_vs_stitchax_bf16` reads (its inputs are REF's img1 / img2)
+BF16_KEYS = ("H", "flow", "canvas_box", "canvas_hw", "control_dst",
+             "control_valid", "mask1", "warp2", "ave_fusion")
+
+
+def write_bf16_reference(path=REF_BF16):
+    st = stitchax_stitcher(fp32=False)
+    arrays = {}
+    for name in PAIRS:
+        ref = stitchax_reference(st, *load_pair(name))
+        arrays.update({f"{name}/{k}": ref[k] for k in BF16_KEYS})
+    np.savez_compressed(path, **arrays)
+    return path
+
+
+def write_comp_reference(path=REF_COMP):
+    """stitchax's fast_cv_g8_comp stitch of demo1 (push-pull inpainter,
+    then the composition net), fp32, as `stitchax_default_reference` keeps
+    the default configuration's."""
+    ref = stitchax_default_reference(stitchax_stitcher(COMP),
+                                     *load_pair(DEFAULT_PAIR))
+    np.savez_compressed(path, **{f"{COMP}/{DEFAULT_PAIR}/{k}": v
+                                 for k, v in ref.items()})
+    return path
 
 
 def write_reference(path=REF):
@@ -510,6 +554,28 @@ def test_default_config_stitch_matches_stitchax():
             (k, res[k], lim)
 
 
+@pytest.mark.slow
+def test_comp_config_stitch_matches_stitchax():
+    """The port's Stitcher with fast_cv_g8_comp (the push-pull inpainter,
+    then the trained composition net; fp32, CPU) on demo1 against
+    stitchax's committed stitch (REF_COMP), within DEFAULT_TOL."""
+    import torch
+
+    from stitchax_torch.run.stitcher import Stitcher, StitchModels
+
+    models = StitchModels.from_npz(CKPT, "cpu", torch.float32, COMP)
+    pair = load_pair(DEFAULT_PAIR)
+    got = Stitcher(models, device="cpu", config=COMP).stitch(*pair)
+    with np.load(REF_COMP) as d:
+        prefix = f"{COMP}/{DEFAULT_PAIR}/"
+        ref = {k[len(prefix):]: d[k] for k in d.files}
+    res = default_config_checks(got, pair, ref)
+    print(res)
+    for k, lim in DEFAULT_TOL.items():
+        assert (res[k] >= lim if k.endswith("_db") else res[k] <= lim), \
+            (k, res[k], lim)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] != ["--write"]:
         sys.exit("usage: python tests/test_torch_parity.py --write")
@@ -521,4 +587,4 @@ if __name__ == "__main__":
             flags + " --xla_force_host_platform_device_count=8").strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
-    print(write_reference())
+    print(write_reference(), write_bf16_reference(), write_comp_reference())

@@ -200,3 +200,19 @@ def test_train_config_takes_the_model_configs_batch():
                                  "--data_dir", "/d"]))
     assert (cfg.batch_size, cfg.image_size, cfg.udis_dataset.data_dir) == (
         4, [256, 256], "/d")
+
+
+@pytest.mark.parametrize("name", ["UDISDataset", "PrefetchLoader"])
+def test_data_api_has_stitchax_signatures(name):
+    """The port's dataset and loader take stitchax's parameters: the same
+    names, in the same order, with the same defaults (UDISDataset's phase
+    "training", then is_test, then size; PrefetchLoader's shuffle before
+    num_workers, and prefetch)."""
+    import inspect
+
+    from stitchax.data import udis as j
+    from stitchax_torch.data import udis as t
+
+    params = lambda cls: [(p.name, p.default) for p in inspect.signature(
+        cls.__init__).parameters.values()]
+    assert params(getattr(t, name)) == params(getattr(j, name))
