@@ -97,6 +97,24 @@ Phases, each printing one JSON line before the next begins:
                          the repository): s per step, peak memory, its
                          export stitching demo1 through the default
                          configuration, and a warm step's split
+  sd_train_vs_stitchax   one fp32 diffusion step and one VAE step (TF32
+                         off) from results/sd_ckpt_r05.pt at 128^2, batch
+                         8, on demo crops with stitchax's t and eps,
+                         against stitchax's jitted steps on the CPU
+                         (tests/torch_reference/sd_train_stitchax_fp32.npz):
+                         losses, gradient norms, kept leaves whole and
+                         after Adam
+  sd_train               python -m stitchax_torch.train_sd_inpaint at its
+                         defaults' widths for a few steps of each phase (in
+                         a temporary directory outside the repository): its
+                         files and history, peak memory, its sd_ckpt.pt
+                         stitching demo1 through the diffusion
+                         configuration; s per warm VAE and diffusion step,
+                         their splits, peak memory and device kernels
+  na_flowformer          FlowFormer++ with the NA vertical layer (seeded;
+                         the trained npz for the shared leaves) at 512^2 in
+                         fp32: finite, K1 / K3 / K4 launched, ms a forward;
+                         card against CPU at 128^2
 
 Then the kernel table (one JSON object), the nvidia-smi line, and the final
 `{"ok": true, "device": ...}` line. Any failed phase exits non-zero without
@@ -107,7 +125,8 @@ the final line. Imports nothing of JAX or of the JAX package.
 instead traces one warm bf16 stitch of the same pair (with fast_cv_g8, or
 the named configuration; `--config evaluate`: one warm batch of the
 evaluation, 12 pairs in fp32; `--config train`: one warm fp32 train step;
-`--config transref_train`: one warm fp32 TransRef train step, batch 4)
+`--config transref_train`: one warm fp32 TransRef train step, batch 4;
+`--config sd_train`: one warm fp32 SD diffusion step, 128^2, batch 8)
 with torch.profiler and prints where the
 device time goes (top kernels by device time, the device's busy share),
 optionally writing a Chrome trace.
@@ -1665,8 +1684,10 @@ def profile_phase(img1, img2, trace_path=None, config=FAST) -> None:
     """One warm bf16 stitch of the configuration under torch.profiler, or
     with config "evaluate" one warm batch of the evaluation (the committed
     split's 12 pairs at 512^2, fp32 nets), with config "train" one warm
-    fp32 train step (512^2, batch 1, TF32 off), or with config
-    "transref_train" one warm fp32 TransRef train step (512^2, batch 4)."""
+    fp32 train step (512^2, batch 1, TF32 off), with config
+    "transref_train" one warm fp32 TransRef train step (512^2, batch 4),
+    or with config "sd_train" one warm fp32 diffusion step of the SD
+    trainer (128^2, batch 8)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1674,6 +1695,8 @@ def profile_phase(img1, img2, trace_path=None, config=FAST) -> None:
         run = profile_train_step()
     elif config == "transref_train":
         run = profile_transref_train_step()
+    elif config == "sd_train":
+        run = profile_sd_train_step()
     elif config == "evaluate":
         from stitchax_torch.align.adapter import AlignConfig
         from stitchax_torch.data.udis import PrefetchLoader, UDISDataset
@@ -2755,6 +2778,413 @@ def profile_transref_train_step():
     return lambda timings: step(state, gt, img2, mask, timings=timings)
 
 
+# --------------------------- SD inpainting trainer ---------------------------
+
+SD_TRAIN_REFERENCE = "tests/torch_reference/sd_train_stitchax_fp32.npz"
+# the tool's learning rates and sizes (tools/train_sd_inpaint_learns.py
+# defaults: 128^2, w = 48, batch 8), the committed checkpoint's widths
+SD_TRAIN_LR_VAE, SD_TRAIN_LR = 3e-4, 2e-4
+SD_TRAIN_SIZE, SD_TRAIN_BATCH = 128, 8
+# the CLI's short run: a few steps of each phase, two evaluation points
+SD_TRAIN_CLI = ["--steps_vae", "3", "--steps", "4", "--eval_every", "2",
+                "--n_eval", "2", "--save_ckpt"]
+# the kept leaves of SD_TRAIN_REFERENCE (their gradients and values after
+# Adam)
+SD_TRAIN_KEPT = (
+    "['vae']['params']['encoder']['conv_in']['kernel']",
+    "['vae']['params']['encoder']['mid']['attn']['to_q']['kernel']",
+    "['vae']['params']['decoder']['conv_out']['kernel']",
+    "['vae']['params']['decoder']['conv_out']['bias']",
+    "['unet']['params']['conv_in']['kernel']",
+    "['unet']['params']['mid_attn']['attn2_k']['kernel']",
+    "['unet']['params']['conv_out']['kernel']",
+    "['unet']['params']['conv_out']['bias']",
+    "['controlnet']['params']['hint_in']['kernel']",
+    "['controlnet']['params']['zero0']['kernel']")
+SD_TRAIN_STEPS = {"vae": ("vae_total", "vae_l1", "vae_l2"),
+                  "diffusion": ("mse",)}
+# one fp32 VAE step and one diffusion step (TF32 off) on the card from the
+# committed checkpoint against stitchax's jitted steps on the CPU
+# (SD_TRAIN_REFERENCE: demo crops, the port's boxes, stitchax's t and
+# eps); see PERF.md section 2 for the readings these hold with ~10x
+# headroom. After Adam, in units of lr, as TRANSREF_TRAIN_STITCHAX_TOL
+SD_TRAIN_STITCHAX_TOL = {
+    "loss_rel": 1.5e-5,          # vae total / l1 / l2, the mse: 1.3e-6
+    "grad_norm_rel": 5e-4,       # each step's global norm: 5.4e-5 (VAE)
+    "leaf_norm_rel": 1e-3,       # each of the 244 + 440 leaves: 8.8e-5
+    "leaf_l2_rel": 2e-3,         # the kept leaves' gradients: 1.8e-4
+    "updated_g_large_lr": 1e-3,  # after Adam where |g| > 1e-6: 1.1e-4 lr
+    "updated_off_share": 3e-3,   # off by more than 0.01 lr: 3.4e-4
+}
+
+
+def _sd_train_nets(device="cuda"):
+    """The committed SD checkpoint's nets on `device`: ({"unet",
+    "controlnet", "vae": module}, the context, the configs, the flat start
+    values by stitchax's key strings)."""
+    import torch
+
+    from stitchax_torch import convert
+    from stitchax_torch.models.diffusion import (ControlNet, UNet2DCondition,
+                                                 UNetConfig)
+    from stitchax_torch.models.vae import AutoencoderKL
+
+    blob = convert.load_sd_container(SD_CKPT)
+    cfgs = blob["configs"]
+    cfg = UNetConfig(**cfgs["unet"])
+    nets = {k: convert.load_jax_params(m, blob[f"{k}_vars"]).to(device)
+            for k, m in (("unet", UNet2DCondition(cfg)),
+                         ("controlnet", ControlNet(cfg)),
+                         ("vae", AutoencoderKL(**cfgs["vae"])))}
+    start = _flat_stitchax({k: blob[f"{k}_vars"] for k in nets})
+    context = torch.as_tensor(blob["context"], dtype=torch.float32,
+                              device=device)
+    return nets, context, cfgs, start
+
+
+def _sd_train_states(nets, context):
+    """(diffusion state, its Adam, its step; VAE state, its Adam, its
+    step) over `nets`."""
+    from stitchax_torch.train.sd_inpaint_trainer import (
+        create_train_state, make_diffusion_train_step, make_vae_train_step)
+
+    state, tx = create_train_state({k: nets[k] for k in ("unet",
+                                                         "controlnet")},
+                                   SD_TRAIN_LR)
+    step = make_diffusion_train_step(nets["unet"], nets["controlnet"],
+                                     nets["vae"], tx, context)
+    vstate, vtx = create_train_state({"vae": nets["vae"]}, SD_TRAIN_LR_VAE)
+    return state, tx, step, vstate, vtx, make_vae_train_step(nets["vae"],
+                                                             vtx)
+
+
+def sd_train_vs_stitchax_phase():
+    """One fp32 diffusion step and then one VAE step (TF32 off) on the card
+    from the committed SD checkpoint, on the reference's crops, holes, t
+    and eps, against stitchax's jitted steps (SD_TRAIN_REFERENCE): the
+    losses, each step's global and every leaf's gradient norm, the kept
+    leaves' whole gradients and their values after Adam."""
+    import torch
+
+    from stitchax_torch.ops.kernels import library
+    from stitchax_torch.train.optim import apply_updates
+    from stitchax_torch.train.trainer import stitchax_tree
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    with np.load(os.path.join(REPO, SD_TRAIN_REFERENCE)) as f:
+        ref = {k: f[k] for k in f.files}
+    nets, context, _, start = _sd_train_nets()
+    x, image01, hole, t, eps = _sd_train_batch()
+    state, tx, step, vstate, vtx, vstep = _sd_train_states(nets, context)
+    flat = lambda d: _flat_stitchax(stitchax_tree(d))
+    library.reset_launches()
+    m, g = step.loss_and_grads(state, image01, hole, t, eps)
+    vm, vg = vstep.loss_and_grads(vstate, x)
+    torch.cuda.synchronize()
+    launches = dict(library.launches)
+    metrics = {"mse": float(m["mse"]),
+               **{f"vae_{k}": float(v) for k, v in vm.items()}}
+    grads = {**flat(g), **flat(vg)}
+    for st, o, gr in ((state, tx, g), (vstate, vtx, vg)):
+        apply_updates(st.params, o.update(gr, st.opt_state)[0])
+    updated = {**flat(state.params), **flat(vstate.params)}
+    step_of = lambda k: "vae" if k.startswith("['vae']") else "diffusion"
+    norm = {s: math.sqrt(sum(float(np.sum(v.astype(np.float64) ** 2))
+                             for k, v in grads.items() if step_of(k) == s))
+            for s in SD_TRAIN_STEPS}
+    res = {"phase": "sd_train_vs_stitchax", "image_size": SD_TRAIN_SIZE,
+           "batch": len(ref["pixels"]), "dtype": "float32",
+           "tf32": torch.backends.cudnn.allow_tf32,
+           "reference": SD_TRAIN_REFERENCE, "t": ref["t"].tolist(),
+           "metrics": metrics,
+           "grad_norms": {f"{s}_grad_norm": v for s, v in norm.items()},
+           "launches_per_step": launches, "leaves": len(grads)}
+    want = {k: float(ref[f"metric/{k}"]) for k in metrics}
+    want.update({f"{s}_grad_norm": float(ref[f"metric/{s}_grad_norm"])
+                 for s in SD_TRAIN_STEPS})
+    res["stitchax_metrics"] = want
+    res["loss_rel"] = max(abs(v - want[k]) / abs(want[k])
+                          for k, v in metrics.items())
+    res["grad_norm_rel"] = max(abs(v - want[k]) / want[k]
+                               for k, v in res["grad_norms"].items())
+    floor = {s: 1e-6 * want[f"{s}_grad_norm"] for s in SD_TRAIN_STEPS}
+    keys = [k[len("gradnorm/"):] for k in ref if k.startswith("gradnorm/")]
+    if sorted(keys) != sorted(grads):
+        raise RuntimeError("sd_train_vs_stitchax: other gradient leaves "
+                           "than stitchax's")
+    norm_err = {k: abs(float(np.linalg.norm(grads[k]))
+                       - float(ref[f"gradnorm/{k}"]))
+                / (float(ref[f"gradnorm/{k}"]) + floor[step_of(k)])
+                for k in keys}
+    worst = max(norm_err, key=norm_err.get)
+    res.update(leaf_norm_rel=norm_err[worst], leaf_norm_worst=worst)
+    res["leaf_l2_rel"] = max(
+        float(np.linalg.norm(grads[k] - ref[f"grad/{k}"]))
+        / (float(np.linalg.norm(ref[f"grad/{k}"])) + floor[step_of(k)])
+        for k in SD_TRAIN_KEPT)
+    large = worst_u = 0.0
+    off = n = 0
+    unmoved = []
+    for k in SD_TRAIN_KEPT:
+        lr = SD_TRAIN_LR_VAE if step_of(k) == "vae" else SD_TRAIN_LR
+        d = np.abs(updated[k] - ref[f"updated/{k}"]) / lr
+        big = np.abs(ref[f"grad/{k}"]) > 1e-6
+        if big.any():
+            large = max(large, float(d[big].max()))
+        worst_u = max(worst_u, float(d.max()))
+        off += int((d > 0.01).sum())
+        n += d.size
+        if not np.any(updated[k] != start[k]):
+            unmoved.append(k)
+    res.update(updated_g_large_lr=large, updated_worst_lr=worst_u,
+               updated_off_share=off / n, unmoved_leaves=unmoved)
+    if unmoved or worst_u > 2.0 + 1e-3:
+        emit(res)
+        raise RuntimeError("sd_train_vs_stitchax: a kept leaf did not move "
+                           "or an element moved by more than 2 lr")
+    _check(res, dict(SD_TRAIN_STITCHAX_TOL), "sd_train_vs_stitchax")
+    del nets, state, vstate, grads
+    torch.cuda.empty_cache()
+
+
+def sd_train_phase():
+    """python -m stitchax_torch.train_sd_inpaint at its defaults' widths
+    (128^2, w = 48, batch 8) for a few steps (SD_TRAIN_CLI) into a
+    temporary directory outside the repository: its files, s per run and
+    peak memory; its sd_ckpt.pt loaded through StitchModels.from_npz(...,
+    sd=...) stitching demo1 with the diffusion configuration (finite, its
+    hole inpainted); then warm steps timed and split."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from stitchax_torch.ops.kernels import library
+    from stitchax_torch.run.stitcher import StitchModels, Stitcher, load_image
+    from stitchax_torch.train_sd_inpaint.__main__ import main as sd_main
+
+    tmp = tempfile.mkdtemp(prefix="stitchax_torch_sd_train_")
+    try:
+        out_dir = os.path.join(tmp, "run")
+        library.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = sd_main([*SD_TRAIN_CLI, "--out", out_dir, "--device", "cuda:0"])
+        run_s = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"sd_train: the CLI returned {rc}")
+        launches = dict(library.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(out_dir, "result.json")) as f:
+            result = json.load(f)
+        files = sorted(os.listdir(out_dir))
+        if files != ["panel_final.jpg", "result.json", "sd_ckpt.pt",
+                     "sd_ckpt_best.pt"]:
+            raise RuntimeError(f"sd_train: the CLI wrote {files}")
+        if [h["step"] for h in result["history"]] != [2, 4] or not all(
+                math.isfinite(h[k]) for h in result["history"]
+                for k in ("mse", "hole_psnr", "hole_psnr_refine")):
+            raise RuntimeError(f"sd_train: history {result['history']}")
+        ckpt = os.path.join(out_dir, "sd_ckpt.pt")
+        ckpt_mib = os.path.getsize(ckpt) / 2 ** 20
+        models = StitchModels.from_npz(CKPT, "cuda", torch.bfloat16,
+                                       DIFFUSION, sd=ckpt)
+        demo = os.path.join(REPO, "demo_data", "demo1")
+        out = Stitcher(models, device="cuda", config=DIFFUSION).stitch(
+            *(load_image(os.path.join(demo, f))
+              for f in ("input1.jpg", "input2.jpg")))
+        check_finite(out)
+        hole = out["inpaint_area_mask"] > 0.5
+        if not hole.any():
+            raise RuntimeError("sd_train: the checkpoint's stitch of demo1 "
+                               "inpainted no hole")
+        hole_share = float(hole.mean())
+        del models, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"phase": "sd_train", "cli": SD_TRAIN_CLI,
+           "image_size": result["size"], "width": result["width"],
+           "batch": result["batch"], "dtype": "float32",
+           "params_m": result["params_m"], "run_s": run_s,
+           "history": result["history"],
+           "vae_recon_psnr": result["vae_recon_psnr"],
+           "psnr_push_pull": result["psnr_push_pull"],
+           "peak_mem_gib": peak, "kernel_launches": launches,
+           "ckpt_mib": ckpt_mib, "ckpt_stitch": "finite",
+           "ckpt_hole_share": hole_share, **sd_step_split(), "ok": True}
+    emit(res)
+
+
+def _sd_train_batch(device="cuda"):
+    """SD_TRAIN_REFERENCE's inputs on `device`: (x in [-1, 1], image01, the
+    holes, NHWC, from its uint8 crops and hole boxes; stitchax's t and eps,
+    NCHW). The timed steps take the same draws every time."""
+    import torch
+
+    from stitchax_torch.train.transref_trainer import rect_masks
+
+    with np.load(os.path.join(REPO, SD_TRAIN_REFERENCE)) as f:
+        ref = {k: f[k] for k in ("pixels", "size", "t", "eps",
+                                 "box/x0", "box/y0", "box/w", "box/h")}
+    px = torch.from_numpy(ref["pixels"]).to(device).float()
+    hole = rect_masks(*(torch.as_tensor(ref[f"box/{k}"], device=device)
+                        for k in ("x0", "y0", "w", "h")), int(ref["size"]))
+    t = torch.as_tensor(ref["t"].astype(np.int64), device=device)
+    eps = torch.as_tensor(ref["eps"], device=device).permute(0, 3, 1, 2)
+    return px / 127.5 - 1.0, px / 255.0, hole, t, eps
+
+
+def sd_step_split(warm=2, timed=5):
+    """Warm steps at 128^2, batch 8 from the committed checkpoint: s per
+    VAE step and per diffusion step (mean of `timed`), a diffusion step's
+    parts (the VAE's encodes, the ControlNet + UNet forward, backward,
+    Adam; synchronized between them) and a VAE step's, each step's peak
+    memory, and the device kernels each step launches (from the
+    profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    nets, context, _, _ = _sd_train_nets()
+    x, image01, hole, t, eps = _sd_train_batch()
+    state, _, step, vstate, _, vstep = _sd_train_states(nets, context)
+    runs = {"diffusion": lambda s, tm=None: step(s, image01, hole, t=t,
+                                                 eps=eps, timings=tm),
+            "vae": lambda s, tm=None: vstep(s, x, timings=tm)}
+    states = {"diffusion": state, "vae": vstate}
+    out = {}
+    for name, run in runs.items():
+        st = states[name]
+        for _ in range(warm):
+            st, _ = run(st)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            st, _ = run(st)
+        torch.cuda.synchronize()
+        out[f"{name}_step_s"] = (time.perf_counter() - t0) / timed
+        out[f"{name}_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30)
+        timings = {}
+        for _ in range(timed):
+            st, _ = run(st, timings)
+        out[f"{name}_split_ms"] = {k: v / timed for k, v in timings.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            st, _ = run(st)
+            torch.cuda.synchronize()
+        out[f"{name}_device_kernels"] = sum(
+            1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        states[name] = st
+    del nets, states, state, vstate
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_sd_train_step():
+    """A function running one warm fp32 diffusion step (128^2, batch 8,
+    from the committed checkpoint)."""
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    nets, context, _, _ = _sd_train_nets()
+    _, image01, hole, t, eps = _sd_train_batch()
+    state, _, step, _, _, _ = _sd_train_states(nets, context)
+    state, _ = step(state, image01, hole, t=t, eps=eps)  # warm-up
+    return lambda timings: step(state, image01, hole, t=t, eps=eps,
+                                timings=timings)
+
+
+# ------------------------- NA vertical attention (A5) ------------------------
+
+# FlowFormer++ at configs/last_config.py's widths with the NA vertical layer
+# (seeded; the trained npz for every shared leaf): on the card at 512^2,
+# and card against CPU at NA_CPU_SIZE in fp32 (TF32 off); see PERF.md
+# section 2 for the reading
+NA_SIZE, NA_CPU_SIZE = 512, 128
+NA_TOL = {"flow_max_abs_px": 6e-3}      # read 5.9e-4 px
+EXPECT_NA_KERNELS = ("gsa_attention", "cost_lookup", "window_attention")
+
+
+def na_flowformer(device):
+    """The port's FlowFormer++ (the shipped config, upsample_all False) with
+    `vertical_encoder_attn="NA"`: every leaf the trained npz shares with it
+    from the npz, the three NA layers seeded by `_seeded_init` (a CPU
+    generator seeded with SEED), on `device`."""
+    import torch
+
+    from stitchax_torch import convert
+    from stitchax_torch.models.flowformer import FlowFormer, FlowFormerConfig
+
+    model = FlowFormer(FlowFormerConfig(vertical_encoder_attn="NA"))
+    tree = convert.load_npz(CKPT)["flow"]
+    perceiver = tree["params"]["memory_encoder"]["cost_perceiver"]
+    for k in [k for k in perceiver if k.startswith("vertical_layer")]:
+        del perceiver[k]
+    missing, unexpected = model.load_state_dict(convert.params_from_jax(tree),
+                                                strict=False)
+    na = [n for n, _ in model.state_dict().items()
+          if ".vertical_layer" in n]
+    if unexpected or sorted(missing) != sorted(na):
+        raise RuntimeError(f"na_flowformer: unexpected {unexpected[:4]}, "
+                           f"missing {sorted(set(missing) - set(na))[:4]}")
+    g = torch.Generator().manual_seed(SEED)
+    for i in range(model.cfg.encoder_depth):
+        _seeded_init(getattr(model.memory_encoder.cost_perceiver,
+                             f"vertical_layer{i}"), g)
+    return model.to(device).eval()
+
+
+def na_flowformer_phase():
+    """The NA variant on the card at 512^2 (fp32, TF32 off): finite flow,
+    ms per forward, K1 / K3 / K4 launched; then card against the port's CPU
+    run at NA_CPU_SIZE on the same seeded images (NA_TOL)."""
+    import torch
+
+    from stitchax_torch.ops.kernels import library
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    g = torch.Generator().manual_seed(SEED)
+    imgs = [torch.rand(1, NA_SIZE, NA_SIZE, 3, generator=g) * 255.0
+            for _ in range(2)]
+    model = na_flowformer("cuda")
+    a, b = (i.cuda() for i in imgs)
+    with torch.no_grad():
+        library.reset_launches()
+        preds, _ = model(a, b)
+        torch.cuda.synchronize()
+        launches = dict(library.launches)
+        flow = preds[-1]
+        ms = cuda_time(lambda: model(a, b), iters=3, warmup=1)
+        small = [torch.nn.functional.interpolate(
+            i.permute(0, 3, 1, 2), size=(NA_CPU_SIZE, NA_CPU_SIZE),
+            mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+            for i in imgs]
+        card = model(*(i.cuda() for i in small))[0][-1].cpu()
+        cpu = na_flowformer("cpu")(*small)[0][-1]
+    res = {"phase": "na_flowformer", "vertical_encoder_attn": "NA",
+           "image_size": NA_SIZE, "dtype": "float32",
+           "weights": f"{WEIGHTS} (shared leaves) + seeded NA layers",
+           "flow_shape": list(flow.shape),
+           "finite": bool(torch.isfinite(flow).all().item()),
+           "flow_abs_max_px": flow.abs().max().item(), "forward_ms": ms,
+           "launches": launches, "cpu_size": NA_CPU_SIZE,
+           "flow_max_abs_px": (card - cpu).abs().max().item()}
+    not_run = [k for k in EXPECT_NA_KERNELS if not launches.get(k)]
+    if not res["finite"] or not_run:
+        emit(res)
+        raise RuntimeError(f"na_flowformer: flow finite {res['finite']}, "
+                           f"kernels not launched {not_run}")
+    _check(res, dict(NA_TOL), "na_flowformer")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2823,6 +3253,9 @@ def main() -> int:
     split = train_phase()
     transref_train_vs_stitchax_phase()
     transref_train_phase()
+    sd_train_vs_stitchax_phase()
+    sd_train_phase()
+    na_flowformer_phase()
     for row in rows:
         if row["name"] in train_rows:
             row["train"] = {**train_rows[row["name"]],

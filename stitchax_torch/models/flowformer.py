@@ -2,7 +2,9 @@
 
 Port of stitchax/models/flowformer.py: twins context/feature encoders ->
 all-pairs cost volume -> CostPerceiverEncoder (K latent tokens per source
-pixel) -> MemoryDecoder, a Python loop of `decoder_depth` recurrent
+pixel; its vertical layers are twins blocks or, with
+`vertical_encoder_attn="NA"`, `na_layer`'s neighborhood attention) ->
+MemoryDecoder, a Python loop of `decoder_depth` recurrent
 iterations whose local cost lookup is the CUDA kernel K3
 (`ops.kernels.cost_lookup`). Inference convex-upsamples only the final
 flow (`upsample_all=False`, as stitchax's Stitcher builds it); training
@@ -23,6 +25,7 @@ from ..ops.grid import coords_grid
 from ..ops.kernels.cost_lookup import cost_lookup
 from .layers import (Conv, TokenFfn, linear_position_embedding_sine,
                      multi_head_attention, pad_to_multiple)
+from .na_layer import NeighborhoodSelfAttentionLayer
 from .twins import TwinsBlockRPEContext, TwinsSVT
 
 
@@ -41,6 +44,9 @@ class FlowFormerConfig:
     vert_c_dim: int = 64
     cost_encoder_res: bool = True
     lookup_radius: int = 4
+    # the cost encoder's vertical layers: twins blocks, or "NA" for the
+    # neighborhood-attention variant (models/na_layer.py)
+    vertical_encoder_attn: str = "twins"
     # all `decoder_depth` predictions convex-upsampled, the mask head
     # batched over the depth (stitchax's default, which its trainer uses);
     # False upsamples only the last, as stitchax's Stitcher configures it
@@ -146,7 +152,13 @@ class CostPerceiverEncoder(nn.Module):
             torch.randn(1, cfg.cost_latent_token_num, cfg.cost_latent_dim))
         for i in range(cfg.encoder_depth):
             setattr(self, f"encoder_layer{i}", LatentSelfAttention(cfg))
-            setattr(self, f"vertical_layer{i}", VerticalSelfAttention(cfg))
+            if cfg.vertical_encoder_attn == "NA":
+                vertical = NeighborhoodSelfAttentionLayer(
+                    cfg.cost_latent_dim, cfg.vert_c_dim,
+                    cfg.encoder_latent_dim)
+            else:
+                vertical = VerticalSelfAttention(cfg)
+            setattr(self, f"vertical_layer{i}", vertical)
 
     def forward(self, cost_maps, context):
         # cost_maps (B, H1, W1, H2, W2, heads); context (B, H1, W1, 256)

@@ -2,7 +2,9 @@
 
 `python -m stitchax_torch.train` runs it (train.py's flags, on one card).
 `transref_trainer` is the TransRef trainer's step (train_transref.py's,
-run by `python -m stitchax_torch.train_transref`).
+run by `python -m stitchax_torch.train_transref`), `sd_inpaint_trainer`
+the SD inpainting stack's VAE and diffusion steps (run by `python -m
+stitchax_torch.train_sd_inpaint`).
 """
 
 from .losses import (LossConfig, border_zero_flow_loss, photometric_l1,

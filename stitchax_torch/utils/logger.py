@@ -6,8 +6,12 @@ metrics go one JSON record per line to `{log_dir}/{name}_metrics.jsonl`,
 as stitchax writes them, and to an optional `sink` callable. `push` keeps
 running windows and prints their means every `sum_freq` steps.
 `save_train_dashboard` draws stitchax's figure of a training step (inputs,
-flow maps, the flow-warped image2 and the average blend); matplotlib is
-imported only there.
+flow maps, the flow-warped image2 and the average blend), `save_flow_panel`
+its panel of the inputs, the flow's colour image and a warp, and
+`save_flow_quiver` its flow-magnitude heat map with arrows; matplotlib is
+imported only there. The panel and the quiver go through the port's JPEG
+writer (`io.jpeg`): the figure's pixels are stitchax's, rendered at 80
+dpi.
 """
 
 from __future__ import annotations
@@ -125,5 +129,69 @@ def save_train_dashboard(path: str, image1, image2, flow_pred,
         ax.axis("off")
     fig.tight_layout()
     fig.savefig(path, dpi=80)
+    plt.close(fig)
+    return path
+
+
+def _figure_rgb(fig, dpi: int = 80) -> np.ndarray:
+    """The figure as `savefig(..., dpi=dpi)` renders it, (H, W, 3) uint8."""
+    import io
+
+    buf = io.BytesIO()
+    fig.savefig(buf, format="rgba", dpi=dpi)
+    w, h = (int(round(v * dpi)) for v in fig.get_size_inches())
+    return np.frombuffer(buf.getvalue(), np.uint8).reshape(h, w, 4)[..., :3]
+
+
+def save_flow_panel(path: str, image1, image2, flow, warped=None) -> str:
+    """stitchax's training panel (its logger.py:131-154): image1, image2,
+    the flow's colour image and, when given, the warped image, side by
+    side, titled; written to `path` as JPEG. Arrays HWC in [0, 255], the
+    flow HW2."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from ..data.flow_viz import flow_to_image
+    from ..io import jpeg
+
+    panels = [("image1", np.clip(image1, 0, 255).astype("uint8")),
+              ("image2", np.clip(image2, 0, 255).astype("uint8")),
+              ("flow", flow_to_image(np.asarray(flow)))]
+    if warped is not None:
+        panels.append(("warped", np.clip(warped, 0, 255).astype("uint8")))
+    fig, axes = plt.subplots(1, len(panels), figsize=(4 * len(panels), 4))
+    for ax, (title, img) in zip(np.atleast_1d(axes), panels):
+        ax.imshow(img)
+        ax.set_title(title)
+        ax.axis("off")
+    fig.tight_layout()
+    jpeg.write(path, _figure_rgb(fig))
+    plt.close(fig)
+    return path
+
+
+def save_flow_quiver(path: str, flow, step: int = 20) -> str:
+    """stitchax's flow figure (its logger.py:157-181): the flow's magnitude
+    as a heat map with a colour bar and white arrows every `step` pixels;
+    written to `path` as JPEG. `flow` HW2, xy-last."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from ..io import jpeg
+
+    flow = np.asarray(flow)
+    mag = np.hypot(flow[..., 0], flow[..., 1])
+    fig, ax = plt.subplots(figsize=(6, 5))
+    im = ax.imshow(mag)
+    fig.colorbar(im, ax=ax)
+    ys = np.arange(0, flow.shape[0], step)
+    xs = np.arange(0, flow.shape[1], step)
+    ax.quiver(xs, ys, flow[::step, ::step, 0], flow[::step, ::step, 1],
+              color="white", angles="xy", scale_units="xy")
+    ax.set_axis_off()
+    fig.tight_layout()
+    jpeg.write(path, _figure_rgb(fig))
     plt.close(fig)
     return path
