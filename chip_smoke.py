@@ -24,16 +24,21 @@ Phases, each printing one JSON line before the next begins:
   kernels                each kernel against its plain PyTorch version at
                          the shapes the stitches gave it: max |diff|, kernel
                          / plain / library ms by CUDA events, the kernel's
-                         and the library call's device time per call from
-                         the profiler, and the least time the card could
-                         take (bound_ms)
+                         and the library call's device time per call (CUDA
+                         events around it, queued while a spin holds the
+                         device, so that no host gap counts; every kernel
+                         phase times each call after writing 128 MiB, so
+                         that the 50 MB L2 holds none of its inputs), and
+                         the least time the card could take (bound_ms)
   stitch_vs_cpu          the fast_cv_g8 stitch in fp32 on the card and on
                          the CPU, compared
   stitch_vs_cpu_default  the same for the default configuration, down to
                          the composition and the learned masks
   kernels_evaluation     K1, K3 and K4 against their plain versions at the
                          evaluation's shapes (fp32, batch 12), timed beside
-                         their bounds and library yardsticks
+                         their bounds and library yardsticks (K1's and K4's
+                         at fp32 accuracy on the tensor cores, 3xTF32, and
+                         at the CUDA cores' fp32 rate)
   stitch_vs_stitchax     the fast_cv_g8 stitch of demo_data/demo1 and demo2
                          in fp32 on the card against stitchax's own outputs
                          (its jitted Stitcher on the CPU), committed in
@@ -71,7 +76,8 @@ Phases, each printing one JSON line before the next begins:
   kernels_backward       K1, K3 and K4 inside autograd at the train step's
                          shapes (fp32): the autograd Function's output and
                          every input gradient against the plain version's
-                         autograd, forward and backward ms by events
+                         autograd, forward and backward ms by events, the
+                         forward's device time
   train_vs_stitchax      one fp32 train step (TF32 off) from the trained
                          npz on the first committed pair at 512^2 against
                          stitchax's jitted step on the CPU
@@ -134,6 +140,7 @@ optionally writing a Chrome trace.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -164,8 +171,9 @@ SEED = 0
 PAIR_HW = (384, 448)            # the demo pair's size
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
+# (tf32 on the tensor cores, fp32 on the CUDA cores)
 HBM_BPS = 3.35e12
-PEAK = {"bf16": 989e12, "fp32": 67e12}
+PEAK = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 # special-function-unit ops (lg2, ex2) per clock per SM on Hopper
 SFU_PER_CLOCK_SM = 16
 
@@ -177,9 +185,11 @@ SFU_PER_CLOCK_SM = 16
 # which their CPU emulations (tests/test_torch_kernels.py) hold within
 # that ulp.
 TOL = {
-    # K1 in fp32 (exact fp32 on the CUDA cores): summation order only
+    # K1 in fp32 (3xTF32 on the tensor cores, ~22-bit products): summation
+    # order and the split's last bits (its CPU emulation reads ~1e-6,
+    # tests/test_torch_kernels.py)
     "gsa_attention_fp32": 2e-5,
-    # K4 in fp32: summation order only
+    # K4 in fp32 (3xTF32, as K1)
     "window_attention_fp32": 2e-5,
     # every product and sum rounded on its own in both: bit-equal
     "cost_lookup": 0.0,
@@ -265,50 +275,106 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms of fn() over `iters` launches, by CUDA events."""
+# bytes written before each timed repetition of a kernel, so that it finds
+# its inputs in device memory and not in the 50 MB L2 (as the main path's
+# calls do, with other work between them)
+L2_FLUSH_BYTES = 128 << 20
+_cache = {}   # the flush buffer, the spin kernel's names
+
+
+def flush_l2() -> None:
     import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    if "buf" not in _cache:
+        _cache["buf"] = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                    device="cuda")
+    _cache["buf"].fill_(1)
 
 
-def device_ms(fn, iters: int = 20):
-    """Mean device time of one fn() call in ms, from the profiler: the sum
-    of the device activities (kernels, copies, sets) it recorded over
-    `iters` calls. Unlike `cuda_time`, host gaps between launches do not
-    count. A profile that recorded no device activity (the profiler
-    sometimes returns none) is taken again, three times at most; None if
-    none recorded any."""
+# a spin of about 5 ms on the device (`torch.cuda._sleep`): longer than the
+# host takes to queue any call timed here
+SPIN_CYCLES = 10_000_000
+
+
+def _spin() -> None:
+    import torch
+    torch.cuda._sleep(SPIN_CYCLES)
+
+
+def device_events(run):
+    """The device activities (kernels, copies, sets) the profiler records
+    while `run()` runs, between two spins and without them: late in a long
+    process the profiler drops activities (a chip run read 5 of 5 kernels
+    of a 5-call profile at the start and 1 of 5 after `train_vs_stitchax`).
+    None if the spin's own name could not be read."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if "spin" not in _cache:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if not names:
+            return None
+        _cache["spin"] = names
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _spin()
+        run()
+        _spin()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in _cache["spin"]]
+
+
+def cuda_time(fn, iters: int = 20, warmup: int = 3,
+              flush: bool = True) -> float:
+    """Mean ms of one fn() over `iters` calls, by CUDA events: each call
+    between its own pair of events, after an L2 flush (`flush_l2`, not
+    timed) unless `flush` is false."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        if flush:
+            flush_l2()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one fn() call in ms: each of `iters` calls after
+    an L2 flush and a spin on the device, between its own pair of CUDA
+    events. The spin holds the device while the host queues the call, so
+    the events span its device work alone (with the device's few
+    microseconds between an event and a kernel), without the host's gaps
+    that `cuda_time` counts. The profiler's sum of device activities is
+    not used: late in a long process it drops the port's kernels
+    (`device_events`)."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        if dev:
-            return sum(e.time_range.end - e.time_range.start
-                       for e in dev) / 1e3 / iters
-    return None
-
-
-def _add(total, x, n=1):
-    """Sum per-call device times over calls; None (not measured) spreads."""
-    return None if total is None or x is None else total + n * x
+    pairs = []
+    for _ in range(iters):
+        flush_l2()
+        _spin()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def bf16_ulp(x: float) -> float:
@@ -322,6 +388,7 @@ def bound_ms(nbytes: float, nflops: float, peak: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+@functools.lru_cache(maxsize=None)
 def sm_clock_hz() -> float:
     """The card's maximum SM clock, as nvidia-smi reads it."""
     out = subprocess.run(
@@ -331,6 +398,27 @@ def sm_clock_hz() -> float:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def fp32_attention_bound(nbytes, nflops, n_exp):
+    """K1's and K4's least time in fp32 at fp32's accuracy, as their fp32
+    paths reach it (3xTF32): the larger of the bytes (each input read once,
+    the output written once) over the memory rate, the flops three times
+    over (three TF32 products a product) at the TF32 rate, and the
+    exponentials (one per logit) on the special-function units at the
+    maximum SM clock; and, beside it, the bound at the CUDA cores' fp32
+    rate that earlier readings were held to. Returns {bound_ms, bound_by,
+    bound_unit ("hbm", "tf32" or "sfu"), fp32_core_bound_ms}."""
+    import torch
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {"hbm": nbytes / HBM_BPS * 1e3,
+             "tf32": 3.0 * nflops / PEAK["tf32"] * 1e3,
+             "sfu": n_exp / (SFU_PER_CLOCK_SM * n_sm * sm_clock_hz()) * 1e3}
+    unit = max(times, key=times.get)
+    return {"bound_ms": times[unit],
+            "bound_by": "bytes" if unit == "hbm" else "operations",
+            "bound_unit": unit,
+            "fp32_core_bound_ms": bound_ms(nbytes, nflops, PEAK["fp32"])[0]}
 
 
 def tps_bound_ms(N, out_h, out_w):
@@ -569,8 +657,8 @@ def window_rows(g, launches):
                 entry.update(ms=t_k, device_ms=d_k, plain_ms=t_p,
                              library_ms=t_l, library_device_ms=d_l,
                              bound_ms=b, bound_by=by)
-                dev_ms = _add(dev_ms, d_k, calls)
-                lib_dev_ms = _add(lib_dev_ms, d_l, calls)
+                dev_ms += calls * d_k
+                lib_dev_ms += calls * d_l
                 ms += calls * t_k
                 plain += calls * t_p
                 lib += calls * t_l
@@ -651,8 +739,8 @@ def kernel_rows(tps_inputs, launches):
                        "heads": heads, "calls": calls, "dtype": "float32",
                        "max_abs_err": e32, "tol": TOL["gsa_attention_fp32"]})
         err = max(err, e)
-        dev_ms = _add(dev_ms, d_k, calls)
-        lib_dev_ms = _add(lib_dev_ms, d_l, calls)
+        dev_ms += calls * d_k
+        lib_dev_ms += calls * d_l
         ms += calls * t_k
         plain += calls * t_p
         lib += calls * t_l
@@ -727,11 +815,11 @@ def kernel_rows(tps_inputs, launches):
                  "launches": launches[DEFAULT]["cost_lookup"],
                  "max_abs_err": e,
                  "ms": DECODER_ITERS * t_k,
-                 "device_ms": _add(0.0, d_k, DECODER_ITERS),
+                 "device_ms": DECODER_ITERS * d_k,
                  "plain_ms": DECODER_ITERS * t_p,
                  "bound_ms": DECODER_ITERS * b, "bound_by": by,
                  "library_ms": DECODER_ITERS * t_l,
-                 "library_device_ms": _add(0.0, d_l, DECODER_ITERS)})
+                 "library_device_ms": DECODER_ITERS * d_l})
 
     # K2, at each configuration's canvas and control points
     k2 = {}
@@ -798,10 +886,12 @@ def eval_kernel_rows():
                                    "library_device_ms": 0.0,
                                    "max_abs_err": 0.0, "bound_by": {}})
         r["launches_per_batch"] += calls
-        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                  "library_device_ms"):
             r[k] += calls * entry[k]
-        for k in ("device_ms", "library_device_ms"):
-            r[k] = _add(r[k], entry[k], calls)
+        if "fp32_core_bound_ms" in entry:
+            r["fp32_core_bound_ms"] = (r.get("fp32_core_bound_ms", 0.0)
+                                       + calls * entry["fp32_core_bound_ms"])
         r["max_abs_err"] = max(r["max_abs_err"], entry["max_abs_err"])
         by = r["bound_by"]
         by[entry["bound_by"]] = by.get(entry["bound_by"], 0.0) + \
@@ -819,8 +909,9 @@ def eval_kernel_rows():
         d = C // heads
         qh, kh, vh = (t.view(B, -1, heads, d).transpose(1, 2).contiguous()
                       for t in (q, k, v))
-        b, by = bound_ms(4 * (2 * B * N * C + 2 * B * GSA_KEYS * C),
-                         4.0 * B * N * GSA_KEYS * C, PEAK["fp32"])
+        bound = fp32_attention_bound(
+            4 * (2 * B * N * C + 2 * B * GSA_KEYS * C),
+            4.0 * B * N * GSA_KEYS * C, B * N * GSA_KEYS * heads)
         add("gsa_attention", {
             "kernel": "gsa_attention", "B": B, "N": N, "C": C,
             "heads": heads, "dtype": "float32", "max_abs_err": e,
@@ -835,7 +926,7 @@ def eval_kernel_rows():
                 lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5),
             "library_device_ms": device_ms(
                 lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5),
-            "bound_ms": b, "bound_by": by}, calls)
+            **bound}, calls)
         del q, k, v, qh, kh, vh
 
     cm = torch.randn(EVAL_COST_P, COST_HW, COST_HW, device=dev, generator=g)
@@ -886,8 +977,9 @@ def eval_kernel_rows():
         qh, kh, vh = (t.reshape(-1, T, heads, d).transpose(1, 2).contiguous()
                       for t in (q, k, v))
         n_win = q.shape[0] * q.shape[1]
-        b, by = bound_ms(4 * (4 * B * H * W * C + 2 * T * C + C),
-                         4.0 * n_win * T * T * C, PEAK["fp32"])
+        bound = fp32_attention_bound(
+            4 * (4 * B * H * W * C + 2 * T * C + C),
+            4.0 * n_win * T * T * C, n_win * T * T * heads)
         add("window_attention", {
             "kernel": "window_attention", "B": B, "H": H, "W": W, "C": C,
             "heads": heads, "fused_qkv": fused, "dtype": "float32",
@@ -902,7 +994,7 @@ def eval_kernel_rows():
                 lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5),
             "library_device_ms": device_ms(
                 lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5),
-            "bound_ms": b, "bound_by": by}, calls)
+            **bound}, calls)
         del args, q, k, v, qh, kh, vh
     for r in rows.values():
         r["bound_by"] = max(r["bound_by"], key=r["bound_by"].get)
@@ -956,11 +1048,11 @@ def sd_part_ms(sd, canvas_h, canvas_w, iters=5):
         return sd.unet(lat9, t, sd.context, res, mid)
 
     with torch.no_grad():
-        return {"ddim_step_ms": cuda_time(step, iters, 1),
+        return {"ddim_step_ms": cuda_time(step, iters, 1, flush=False),
                 "vae_encode_ms": cuda_time(
-                    lambda: sd.vae.encode_mode(ctrl), iters, 1),
+                    lambda: sd.vae.encode_mode(ctrl), iters, 1, False),
                 "vae_decode_ms": cuda_time(lambda: sd.vae.decode(lat),
-                                           iters, 1)}
+                                           iters, 1, False)}
 
 
 def stitch_phase(img1, img2, config=FAST):
@@ -1976,20 +2068,24 @@ def train_kernel_rows(launches, grad_launches):
         r = rows.setdefault(name, {
             "launches_per_step": launches[name],
             "forward_launches_under_grad": grad_launches[name],
-            "forward_ms": 0.0, "backward_ms": 0.0, "plain_forward_ms": 0.0,
-            "plain_backward_ms": 0.0, "forward_bound_ms": 0.0,
+            "forward_ms": 0.0, "forward_device_ms": 0.0, "backward_ms": 0.0,
+            "plain_forward_ms": 0.0, "plain_backward_ms": 0.0,
+            "forward_bound_ms": 0.0,
             "library_forward_device_ms": 0.0,
             "library_forward_backward_device_ms": 0.0,
             "forward_bound_by": {}, "max_abs_err": 0.0,
             "max_grad_rel_err": 0.0,
             "backward": "the plain version differentiated (autograd), "
                         "as stitchax's"})
-        for k in ("forward_ms", "backward_ms", "plain_forward_ms",
-                  "plain_backward_ms", "forward_bound_ms"):
-            r[k] += calls * entry[k]
-        for k in ("library_forward_device_ms",
+        for k in ("forward_ms", "forward_device_ms", "backward_ms",
+                  "plain_forward_ms", "plain_backward_ms", "forward_bound_ms",
+                  "library_forward_device_ms",
                   "library_forward_backward_device_ms"):
-            r[k] = _add(r[k], entry[k], calls)
+            r[k] += calls * entry[k]
+        if "forward_fp32_core_bound_ms" in entry:
+            r["forward_fp32_core_bound_ms"] = (
+                r.get("forward_fp32_core_bound_ms", 0.0)
+                + calls * entry["forward_fp32_core_bound_ms"])
         by = r["forward_bound_by"]
         by[entry["forward_bound_by"]] = by.get(
             entry["forward_bound_by"], 0.0) + calls * entry["forward_bound_ms"]
@@ -2024,15 +2120,20 @@ def train_kernel_rows(launches, grad_launches):
         sdpa = lambda: F.scaled_dot_product_attention(
             heads_of(q), heads_of(k), heads_of(v)).transpose(1, 2).reshape(
                 B, N, C)
-        fb, fby = bound_ms(4 * (2 * B * N * C + 2 * B * GSA_KEYS * C),
-                           4.0 * B * N * GSA_KEYS * C, PEAK["fp32"])
+        bound = fp32_attention_bound(
+            4 * (2 * B * N * C + 2 * B * GSA_KEYS * C),
+            4.0 * B * N * GSA_KEYS * C, B * N * GSA_KEYS * heads)
         add("gsa_attention", {
             "kernel": "gsa_attention", "B": B, "N": N, "C": C,
             "heads": heads, "dtype": "float32", "max_abs_err": e,
             "tol": TOL["gsa_attention_fp32"], "max_grad_rel_err": eg,
-            "grad_tol": TRAIN_GRAD_TOL, "forward_ms": f, "backward_ms": b,
+            "grad_tol": TRAIN_GRAD_TOL, "forward_ms": f,
+            "forward_device_ms": device_ms(fn, iters=5), "backward_ms": b,
             "plain_forward_ms": pf, "plain_backward_ms": pb,
-            "forward_bound_ms": fb, "forward_bound_by": fby,
+            "forward_bound_ms": bound["bound_ms"],
+            "forward_bound_by": bound["bound_by"],
+            "forward_bound_unit": bound["bound_unit"],
+            "forward_fp32_core_bound_ms": bound["fp32_core_bound_ms"],
             "library": "F.scaled_dot_product_attention, fp32",
             **library(sdpa, (q, k, v), g_out)}, calls)
         del q, k, v, g_out
@@ -2074,8 +2175,10 @@ def train_kernel_rows(launches, grad_launches):
         "kernel": "cost_lookup", "P": TRAIN_COST_P, "H2": COST_HW,
         "W2": COST_HW, "r": COST_R, "dtype": "float32", "max_abs_err": e,
         "tol": TOL["cost_lookup"], "max_grad_rel_err": eg,
-        "grad_tol": TRAIN_GRAD_TOL, "forward_ms": f, "backward_ms": b,
-        "plain_forward_ms": pf, "plain_backward_ms": pb,
+        "grad_tol": TRAIN_GRAD_TOL, "forward_ms": f,
+        "forward_device_ms": device_ms(lambda: cost_lookup.cost_lookup(
+            cm, coords.detach(), COST_R), iters=5),
+        "backward_ms": b, "plain_forward_ms": pf, "plain_backward_ms": pb,
         "forward_bound_ms": fb, "forward_bound_by": fby,
         "library": "F.grid_sample, fp32, gradient to the cost maps",
         **library(sample, (cm,), g_out)}, DECODER_ITERS)
@@ -2115,16 +2218,20 @@ def train_kernel_rows(launches, grad_launches):
                        for t in wa.biased_windows(*args(), ws))
             return F.scaled_dot_product_attention(q, k, v).sum()
 
-        fb, fby = bound_ms(4 * (4 * B * H * W * C + 2 * T * C + C),
-                           4.0 * n_win * T * T * C, PEAK["fp32"])
+        bound = fp32_attention_bound(
+            4 * (4 * B * H * W * C + 2 * T * C + C),
+            4.0 * n_win * T * T * C, n_win * T * T * heads)
         add("window_attention", {
             "kernel": "window_attention", "B": B, "H": H, "W": W, "C": C,
             "heads": heads, "fused_qkv": fused, "dtype": "float32",
             "max_abs_err": e, "tol": TOL["window_attention_fp32"],
             "max_grad_rel_err": eg, "grad_tol": TRAIN_GRAD_TOL,
-            "forward_ms": f, "backward_ms": b, "plain_forward_ms": pf,
-            "plain_backward_ms": pb, "forward_bound_ms": fb,
-            "forward_bound_by": fby,
+            "forward_ms": f, "forward_device_ms": device_ms(fn, iters=5),
+            "backward_ms": b, "plain_forward_ms": pf,
+            "plain_backward_ms": pb, "forward_bound_ms": bound["bound_ms"],
+            "forward_bound_by": bound["bound_by"],
+            "forward_bound_unit": bound["bound_unit"],
+            "forward_fp32_core_bound_ms": bound["fp32_core_bound_ms"],
             "library": "F.scaled_dot_product_attention on the biased "
                        "windows, fp32 (partition and bias included)",
             **library(sdpa, leaves, None)}, calls)
@@ -2449,7 +2556,7 @@ def train_step_split(warm=1, timed=3):
         for k, every in (("backward_flow_call_ms", False),
                          ("backward_flow_call_upsample_all_ms", True)):
             out[k] = cuda_time(lambda: flow(warp, a, upsample_all=every),
-                               iters=timed, warmup=1)
+                               iters=timed, warmup=1, flush=False)
     del state, step, fwd, warp
     torch.cuda.empty_cache()
     return out
@@ -3043,7 +3150,6 @@ def sd_step_split(warm=2, timed=5):
     memory, and the device kernels each step launches (from the
     profiler)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from stitchax_torch.utils.precision import fp32_exact
 
@@ -3073,12 +3179,10 @@ def sd_step_split(warm=2, timed=5):
         for _ in range(timed):
             st, _ = run(st, timings)
         out[f"{name}_split_ms"] = {k: v / timed for k, v in timings.items()}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            st, _ = run(st)
-            torch.cuda.synchronize()
-        out[f"{name}_device_kernels"] = sum(
-            1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+        ran = []
+        dev = device_events(lambda: ran.append(run(st)))
+        st, _ = ran[0]
+        out[f"{name}_device_kernels"] = None if dev is None else len(dev)
         states[name] = st
     del nets, states, state, vstate
     torch.cuda.empty_cache()
@@ -3160,7 +3264,7 @@ def na_flowformer_phase():
         torch.cuda.synchronize()
         launches = dict(library.launches)
         flow = preds[-1]
-        ms = cuda_time(lambda: model(a, b), iters=3, warmup=1)
+        ms = cuda_time(lambda: model(a, b), iters=3, warmup=1, flush=False)
         small = [torch.nn.functional.interpolate(
             i.permute(0, 3, 1, 2), size=(NA_CPU_SIZE, NA_CPU_SIZE),
             mode="bilinear", align_corners=False).permute(0, 2, 3, 1)

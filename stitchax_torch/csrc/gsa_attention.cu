@@ -32,9 +32,34 @@
 // The TPU kernel's per-head channel mask (8x redundant FLOPs to fill the
 // MXU) is not carried over.
 //
-// fp32 inputs keep an exact fp32 path on the CUDA cores (TF32 would cost
-// three digits of the fp32 comparisons): one thread per query row, two
-// passes over the staged keys (max, then exp-sum and the weighted sum).
+// fp32 design (tensor cores in 3xTF32, `mma.sync.m16n8k8` tf32 with fp32
+// accumulators; common.cuh): one TF32 pass would cost three digits of the
+// fp32 comparisons, so every product a b is taken as a_lo b_hi + a_hi b_lo
+// + a_hi b_hi of the operands split into tf32 hi and lo parts, about 22
+// significant bits. In fp32 the work is ~M/2 = 128 flops per byte of q
+// and out, above the ~49 of 3xTF32 (495 / 3 TFLOP/s over 3.35 TB/s): the
+// bound is the tensor cores' TF32 rate at three products a flop, with the
+// exponentials on the special-function units next. The structure is the
+// bf16 path's, with one block per (f32_warps * 16 * tiles query rows,
+// head, batch): the head's K (Mp x d) and V^T (d x Mp) are staged once in
+// shared memory, already split, as 16-byte chunks {hi, hi, lo, lo} of two
+// neighbouring channels (K) or keys (V^T), with zero keys up to the next
+// 64; each warp's q fragments (hi and lo) stay in registers; per chunk of
+// 64 keys S = q K^T is formed once (three products a tile), masked past M
+// in the last chunk, and an online softmax in the exp2 domain feeds P,
+// split, to three more products with V. The k order of each 8-step is
+// relabelled (k = t as 2t, k = t+4 as 2t+1) so that S's accumulators are
+// P's A fragment in place (no shuffle) and every operand is one
+// conflict-free 16-byte load. The row sum is taken over the unsplit P in
+// fp32. K and V go through registers on their way in, 16 bytes a load,
+// because they are split and V is transposed there (`cp.async` would land
+// them unsplit). At d = 32 the split K and V fill 146 KiB, so one block
+// holds an SM and takes 12 warps; at d = 16 (81 KiB) two blocks of 8 do.
+// What holds it above its bound: `mma.sync` is Hopper's older tensor-core
+// path (the full TF32 rate needs `wgmma`), and each warp's chain per
+// chunk (three dependent products per tile, then the row max, shuffles,
+// exponentials and the split of P, which `cvt.rna.tf32.f32` turns into
+// integer instructions) has few warps beside it to hide in.
 
 #include <cstdint>
 #include <math.h>
@@ -45,87 +70,239 @@ namespace {
 
 constexpr int kMaxKeys = 256;
 
-// ------------------------------ fp32 path -----------------------------------
+constexpr int kChunk = 64;    // keys per online-softmax step
 
-constexpr int kRows = 128;  // query rows (threads) per block
+// ------------------------- fp32 path (3xTF32) --------------------------------
+
+constexpr int kF32MaxTiles = 4;  // 16-row tiles per warp at most
+
+// warps per block, 16 query rows each: at d = 32 one block fills an SM's
+// shared memory, so it takes as many warps as its registers allow; at
+// d = 16 two blocks of 8 share an SM
+template <int D>
+__host__ __device__ constexpr int f32_warps() { return D == 32 ? 12 : 8; }
+
+// Shared memory of one block (32-bit words): K as Mp rows of D/2 chunks
+// {hi, hi, lo, lo} (channels 2c, 2c+1 of one key) and V^T as D rows of Mp/2
+// chunks (keys 2p, 2p+1 of one channel); both row strides are 16 words
+// past a multiple of 32, so a quarter warp's 16-byte loads (two rows, four
+// chunks each) meet no bank conflict.
+template <int D>
+__host__ __device__ constexpr int f32_k_stride() { return 2 * D + 16; }
+__host__ __device__ inline int f32_v_stride(int Mp) { return 2 * Mp + 16; }
+template <int D>
+__host__ __device__ inline size_t f32_smem_words(int Mp) {
+  return (size_t)Mp * f32_k_stride<D>() + (size_t)D * f32_v_stride(Mp);
+}
 
 template <int D>
-__global__ void __launch_bounds__(kRows)
-gsa_attention_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ out,
-                         int N, int M, int C, float scale) {
+__global__ void __launch_bounds__(f32_warps<D>() * 32)
+gsa_attention_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ out,
+                          int N, int M, int C, int tiles, float scale_log2) {
+  constexpr int KRS = f32_k_stride<D>();
+  const int Mp = (M + kChunk - 1) / kChunk * kChunk;
+  const int VRS = f32_v_stride(Mp);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + M * D;
+  uint32_t* ks = reinterpret_cast<uint32_t*>(smem_raw);
+  uint32_t* vt = ks + Mp * KRS;
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const float* kb = k + (size_t)b * M * C + (size_t)h * D;
   const float* vb = v + (size_t)b * M * C + (size_t)h * D;
-  for (int i = threadIdx.x; i < M * D; i += blockDim.x) {
-    const int j = i / D, c = i - (i / D) * D;
-    ks[i] = kb[(size_t)j * C + c];
-    vs[i] = vb[(size_t)j * C + c];
+  // K: 4 channels (16 bytes) of one key per load, neighbouring threads on
+  // neighbouring channels; keys past M are zero (their logits are masked)
+#pragma unroll 4
+  for (int i = threadIdx.x; i < Mp * (D / 4); i += blockDim.x) {
+    const int j = i / (D / 4), c4 = i - j * (D / 4);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < M)
+      x = *reinterpret_cast<const float4*>(kb + (size_t)j * C + 4 * c4);
+    uint4* row = reinterpret_cast<uint4*>(ks + j * KRS);
+    row[2 * c4] = split_pair(x.x, x.y);
+    row[2 * c4 + 1] = split_pair(x.z, x.w);
+  }
+  // V^T: 4 channels of two keys per thread, neighbouring threads on
+  // neighbouring key pairs (conflict-free chunk stores); keys past M are
+  // zero, so their zero weights meet no garbage
+#pragma unroll 2
+  for (int i = threadIdx.x; i < (Mp / 2) * (D / 4); i += blockDim.x) {
+    const int c4 = i / (Mp / 2), p = i - c4 * (Mp / 2);
+    float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
+    if (2 * p < M)
+      x0 = *reinterpret_cast<const float4*>(vb + (size_t)(2 * p) * C + 4 * c4);
+    if (2 * p + 1 < M)
+      x1 = *reinterpret_cast<const float4*>(vb + (size_t)(2 * p + 1) * C +
+                                            4 * c4);
+    uint4* col = reinterpret_cast<uint4*>(vt + 4 * c4 * VRS) + p;
+    col[0] = split_pair(x0.x, x1.x);
+    col[VRS / 4] = split_pair(x0.y, x1.y);
+    col[VRS / 2] = split_pair(x0.z, x1.z);
+    col[3 * VRS / 4] = split_pair(x0.w, x1.w);
   }
   __syncthreads();
 
-  const int n = blockIdx.x * kRows + threadIdx.x;
-  if (n >= N) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, column pair
+  constexpr int kWarpsB = f32_warps<D>();
+  const int block_rows = kWarpsB * 16 * tiles;
 
-  const float* qp = q + ((size_t)b * N + n) * C + (size_t)h * D;
-  float qr[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) qr[c] = qp[c];
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int row0 = blockIdx.x * block_rows + (tile * kWarpsB + warp) * 16;
+    if (row0 >= N) break;  // warp-uniform
+    const int ra = row0 + g, rb = row0 + g + 8;
+    const float* qa_p = q + ((size_t)b * N + ra) * C + (size_t)h * D;
+    const float* qb_p = q + ((size_t)b * N + rb) * C + (size_t)h * D;
 
-  float mx = -INFINITY;
-  for (int j = 0; j < M; ++j) {
-    const float* kj = ks + j * D;
-    float s = 0.f;
+    // q fragments (A, 16 x d), split: rows g / g+8, channels 2t, 2t+1 of
+    // each 8-channel step (k = t, t+4)
+    uint32_t qh[D / 8][4], ql[D / 8][4];
 #pragma unroll
-    for (int c = 0; c < D; ++c) s = fmaf(qr[c], kj[c], s);
-    mx = fmaxf(mx, s * scale);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int c = kk * 8 + 2 * t;
+      float2 xa = make_float2(0.f, 0.f), xb = xa;
+      if (ra < N) xa = *reinterpret_cast<const float2*>(qa_p + c);
+      if (rb < N) xb = *reinterpret_cast<const float2*>(qb_p + c);
+      split_tf32(xa.x, qh[kk][0], ql[kk][0]);
+      split_tf32(xb.x, qh[kk][1], ql[kk][1]);
+      split_tf32(xa.y, qh[kk][2], ql[kk][2]);
+      split_tf32(xb.y, qh[kk][3], ql[kk][3]);
+    }
+
+    float o[D / 8][4];
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows g / g+8
+    float l0 = 0.f, l1 = 0.f;              // this thread's share of the sum
+
+    for (int kc = 0; kc < Mp; kc += kChunk) {
+      // S = q K^T for 64 keys: 8 tiles of 16 x 8, each logit formed once
+      float s[kChunk / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kChunk / 8; ++nt) {
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        const uint32_t* kr = ks + (kc + nt * 8 + g) * KRS + 4 * t;
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk)
+          mma_3xtf32(s[nt], qh[kk], ql[kk], lds128(kr + kk * 16));
+      }
+      // scale to the exp2 domain, mask keys past M (in the last chunk
+      // only), running max
+      const bool ragged = kc + kChunk > M;  // block-uniform
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int nt = 0; nt < kChunk / 8; ++nt) {
+        const int key = kc + nt * 8 + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] *= scale_log2;
+          if (ragged && key + (e & 1) >= M) s[nt][e] = -INFINITY;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // the first chunk holds key 0, so mx is finite from here on
+      const float a0 = ex2_ftz(m0 - mx0), a1 = ex2_ftz(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        o[dn][0] *= a0;
+        o[dn][1] *= a0;
+        o[dn][2] *= a1;
+        o[dn][3] *= a1;
+      }
+      // O += P V, 8 keys a step: S tile nt's registers {c0, c2, c1, c3},
+      // split, are P's A fragment with keys 2t, 2t+1 as k = t, t+4, and V's
+      // B fragment is the chunk of keys 2t, 2t+1 of output column g; the
+      // row sums take the unsplit P
+      const uint32_t* vr = vt + g * VRS + 2 * kc + 4 * t;
+#pragma unroll
+      for (int nt = 0; nt < kChunk / 8; ++nt) {
+        const float p0 = ex2_ftz(s[nt][0] - m0), p1 = ex2_ftz(s[nt][1] - m0);
+        const float p2 = ex2_ftz(s[nt][2] - m1), p3 = ex2_ftz(s[nt][3] - m1);
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        uint32_t ph[4], pl[4];
+        split_tf32(p0, ph[0], pl[0]);
+        split_tf32(p2, ph[1], pl[1]);
+        split_tf32(p1, ph[2], pl[2]);
+        split_tf32(p3, ph[3], pl[3]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn)
+          mma_3xtf32(o[dn], ph, pl, lds128(vr + dn * 8 * VRS + nt * 16));
+      }
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+    float* oa = out + ((size_t)b * N + ra) * C + (size_t)h * D;
+    float* ob = out + ((size_t)b * N + rb) * C + (size_t)h * D;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int c = dn * 8 + 2 * t;
+      if (ra < N)
+        *reinterpret_cast<float2*>(oa + c) =
+            make_float2(o[dn][0] * i0, o[dn][1] * i0);
+      if (rb < N)
+        *reinterpret_cast<float2*>(ob + c) =
+            make_float2(o[dn][2] * i1, o[dn][3] * i1);
+    }
   }
-
-  float acc[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  float sum = 0.f;
-  for (int j = 0; j < M; ++j) {
-    const float* kj = ks + j * D;
-    const float* vj = vs + j * D;
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) s = fmaf(qr[c], kj[c], s);
-    const float p = expf(s * scale - mx);
-    sum += p;
-#pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] = fmaf(p, vj[c], acc[c]);
-  }
-
-  const float inv = 1.f / sum;
-  float* op = out + ((size_t)b * N + n) * C + (size_t)h * D;
-#pragma unroll
-  for (int c = 0; c < D; ++c) op[c] = acc[c] * inv;
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        void* out, int B, int N, int M, int C, int heads,
                        cudaStream_t stream) {
-  auto kernel = gsa_attention_f32_kernel<D>;
-  // above 48 KiB (d = 32 at M = 256) the dynamic shared memory needs the
-  // attribute; it is set once, for the largest M the kernel takes
-  constexpr int kMaxSmem = 2 * kMaxKeys * D * sizeof(float);
+  auto kernel = gsa_attention_tf32_kernel<D>;
+  // above 48 KiB the dynamic shared memory needs the attribute; it is set
+  // once, for the largest M the kernel takes (146 KiB at d = 32, 81 KiB at
+  // d = 16, where two blocks share an SM)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(f32_smem_words<D>(kMaxKeys) * sizeof(uint32_t)));
   if (attr != cudaSuccess) return attr;
-  const size_t smem = 2 * (size_t)M * D * sizeof(float);
-  const dim3 grid((N + kRows - 1) / kRows, heads, B);
-  const float scale = 1.0f / sqrtf((float)D);
-  kernel<<<grid, kRows, smem, stream>>>(
+  static const cudaError_t carve = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (carve != cudaSuccess) return carve;
+  int dev = 0, n_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int Mp = (M + kChunk - 1) / kChunk * kChunk;
+  const size_t smem = f32_smem_words<D>(Mp) * sizeof(uint32_t);
+  // a block stages its head's K and V once for f32_warps * 16 * tiles
+  // query rows: as many as keep the grid at two blocks per SM or more
+  int tiles = kF32MaxTiles;
+  auto blocks = [&](int tl) {
+    const int rows = f32_warps<D>() * 16 * tl;
+    return (long long)((N + rows - 1) / rows) * heads * B;
+  };
+  while (tiles > 1 && blocks(tiles) < 2LL * n_sm) tiles /= 2;
+  const int rows = f32_warps<D>() * 16 * tiles;
+  const dim3 grid((N + rows - 1) / rows, heads, B);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  kernel<<<grid, f32_warps<D>() * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), N, M, C, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), N, M, C, tiles,
+      scale_log2);
   return cudaGetLastError();
 }
 
@@ -133,7 +310,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
 constexpr int kWarps = 8;     // warps per block, 16 query rows each
 constexpr int kTiles = 2;     // 16-row tiles per warp (K/V staged once for all)
-constexpr int kChunk = 64;    // keys per online-softmax step
 constexpr int kBlockRows = kWarps * 16 * kTiles;
 
 template <int D>

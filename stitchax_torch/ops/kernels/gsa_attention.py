@@ -4,7 +4,11 @@ Port of `gsa_attention_pallas` (stitchax/ops/pallas/gsa_attention.py:51).
 `gsa_attention` launches the CUDA kernel for CUDA tensors and takes the plain
 PyTorch version only for CPU tensors. bf16 runs on the tensor cores with P
 rounded to bf16 for the P V product (within one bf16 ulp of max |out| of
-the plain version); fp32 runs exactly in fp32 on the CUDA cores. Under
+the plain version); fp32 runs on the tensor cores too, in 3xTF32: each
+operand split into tf32 hi and lo parts and each product taken as lo*hi +
+hi*lo + hi*hi, which keeps fp32's accuracy (within 2e-5 of the plain
+version) without TF32's loss. The kernel reads q, k and v 16 bytes at a
+time, so it takes 16-byte aligned tensors (as the main path's are). Under
 autograd the kernel runs inside `GsaAttention`, a `torch.autograd.Function`
 whose backward differentiates the plain version, as stitchax's custom_vjp
 does (stitchax/ops/pallas/gsa_attention.py:116).
@@ -74,6 +78,8 @@ def _launch(q, k, v, heads: int) -> torch.Tensor:
                          f" k{tuple(k.shape)} v{tuple(v.shape)} heads={heads}")
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError("gsa_attention: q, k, v must share a dtype")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("gsa_attention: q, k, v must be 16-byte aligned")
     out = torch.empty_like(q)
     lib = library.load_library()
     err = lib.stx_gsa_attention(

@@ -7,10 +7,14 @@ streams qx/kx/vx (B, H, W, C) plus per-window-position biases q_bias/k_bias
 (ws*ws, C) and v_bias (1, C): zero-padded border tokens then reduce exactly
 to the biases, as the reference pads before projecting, and take part as
 keys and values. `window_attention` launches the CUDA kernel for CUDA
-tensors and takes the plain PyTorch version only for CPU tensors. In bf16
-the kernel runs on the tensor cores and reads each token's channels with
-16-byte loads, so it takes 16-byte aligned tensors whose strides are
-multiples of 8 elements (as the main path's are) and raises otherwise.
+tensors and takes the plain PyTorch version only for CPU tensors. The
+kernel runs on the tensor cores in both types: bf16 with P rounded to bf16
+for the P V product (within one bf16 ulp of max |out|), fp32 in 3xTF32
+(each operand split into tf32 hi and lo parts, each product taken as
+lo*hi + hi*lo + hi*hi), which keeps fp32's accuracy (within 2e-5). It
+reads each token's channels with 16-byte loads, so it takes 16-byte
+aligned tensors whose strides are multiples of 16 bytes (8 bf16 or 4 fp32
+values; the main path's are) and raises otherwise.
 Under autograd the kernel runs inside `WindowAttention`, whose backward
 differentiates the plain version for the three streams and the three
 biases: stitchax's LSA blocks are XLA (stitchax/ops/window_attention.py:52),
@@ -25,8 +29,7 @@ import torch.nn.functional as F
 from . import library
 
 HEAD_DIMS = (16, 32)
-MAX_TOKENS = 64          # ws * ws: four 16-row tiles (bf16), one thread
-                         # per query row (fp32)
+MAX_TOKENS = 64          # ws * ws: four 16-row tiles
 
 
 def partition(t: torch.Tensor, ws: int) -> torch.Tensor:
@@ -145,10 +148,11 @@ def _launch(qx, kx, vx, q_bias, k_bias, v_bias, heads: int,
                   _token_stride(vx, "vx"))
     ptrs = [t.data_ptr() for t in tensors]
     code = library.dtype_code(dtype)
-    if code == library.BFLOAT16 and (any(p % 16 for p in ptrs)
-                                     or (qs | ks | vs | qbs | kbs) % 8):
-        raise ValueError("window_attention: bf16 tensors must be 16-byte "
-                         "aligned with strides that are multiples of 8")
+    per16 = 8 if code == library.BFLOAT16 else 4    # values in 16 bytes
+    if any(p % 16 for p in ptrs) or (qs | ks | vs | qbs | kbs) % per16:
+        raise ValueError(f"window_attention: tensors must be 16-byte "
+                         f"aligned with strides that are multiples of "
+                         f"{per16}")
     out = torch.empty(shape, device=dev, dtype=dtype)
     err = library.load_library().stx_window_attention(
         *ptrs, out.data_ptr(), B, H, W, C, heads, ws, qs, ks, vs, qbs, kbs,

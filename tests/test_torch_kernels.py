@@ -119,6 +119,185 @@ def test_gsa_mma_rounding_holds_one_bf16_ulp(B, N, C, heads, M):
     assert (got - want).abs().max().item() <= ulp
 
 
+# ------------------------- 3xTF32 (K1 and K4 in fp32) ------------------------
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """`cvt.rna.tf32.f32` on fp32 values: 10 explicit mantissa bits, rounded
+    to nearest with ties away from zero (half of the dropped 13 bits added
+    to the magnitude, then cut); the result is an fp32 value."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3):
+    """a @ b (fp32) as the kernels' tensor cores take it, 8 of the inner
+    dimension a step into fp32 sums: with passes=3 (3xTF32) each operand
+    split as hi = tf32(x), lo = tf32(x - hi) and each step adding a_lo b_hi,
+    then a_hi b_lo, then a_hi b_hi (every product exact in fp32); with
+    passes=1 a single TF32 product a_hi b_hi."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        if passes == 3:
+            acc = acc + al[..., ks] @ bh[..., ks, :]
+            acc = acc + ah[..., ks] @ bl[..., ks, :]
+        acc = acc + ah[..., ks] @ bh[..., ks, :]
+    return acc
+
+
+def gsa_tf32_emulation(q, k, v, heads, passes=3, chunk=64):
+    """K1's fp32 kernel (csrc/gsa_attention.cu) in plain PyTorch: S = q K^T
+    in 3xTF32 per chunk of 64 keys, an online softmax in the exp2 domain
+    (running max, rescaled sums), P split for the 3xTF32 P V product and
+    summed unsplit for the row sum, the output times the sum's reciprocal.
+    passes=1 takes one TF32 product instead (P rounded to tf32)."""
+    B, N, C = q.shape
+    M = k.shape[1]
+    d = C // heads
+    qh, kh, vh = (t.reshape(B, -1, heads, d).transpose(1, 2)
+                  for t in (q, k, v))
+    scale_log2 = float(np.float32(1.4426950408889634) / np.sqrt(np.float32(d)))
+    m = torch.full((B, heads, N, 1), -torch.inf)
+    l = torch.zeros(B, heads, N, 1)
+    o = torch.zeros(B, heads, N, d)
+    for kc in range(0, M, chunk):
+        s = mm_tf32(qh, kh[:, :, kc:kc + chunk].transpose(-1, -2),
+                    passes) * scale_log2
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        a = torch.exp2(m - mx)
+        m = mx
+        p = torch.exp2(s - m)
+        l = l * a + p.sum(-1, keepdim=True)
+        o = o * a + mm_tf32(p, vh[:, :, kc:kc + chunk], passes)
+    return (o * (1 / l)).transpose(1, 2).reshape(B, N, C)
+
+
+def window_tf32_emulation(qx, kx, vx, q_bias, k_bias, v_bias, *, heads, ws,
+                          passes=3):
+    """K4's fp32 kernel (csrc/window_attention.cu) in plain PyTorch: the
+    biased streams in fp32, S = q K^T in 3xTF32 over the window's keys
+    padded to the next 8 with only that padding masked, the exact row max
+    in one pass, P = 2^(s * scale_log2 - max * scale_log2) with the fused
+    multiply-add's one rounding (emulated in float64), P split for the
+    3xTF32 P V product and summed unsplit, the output times the sum's
+    reciprocal. passes=1 takes one TF32 product instead."""
+    B, H, W, C = qx.shape
+    T, d = ws * ws, C // heads
+    TP = -(-T // 8) * 8
+    q, k, v = twa.biased_windows(qx, kx, vx, q_bias, k_bias, v_bias, ws)
+
+    def split(t, rows):
+        t = t.reshape(B, -1, T, heads, d).transpose(2, 3)
+        return torch.nn.functional.pad(t, (0, 0, 0, rows - T))
+
+    qh, kh, vh = split(q, T), split(k, TP), split(v, TP)
+    scale_log2 = float(np.float32(1.4426950408889634) / np.sqrt(np.float32(d)))
+    s = mm_tf32(qh, kh.transpose(-1, -2), passes)
+    s[..., T:] = -torch.inf
+    m = s.amax(-1, keepdim=True) * scale_log2
+    p = torch.exp2((s.double() * scale_log2 - m.double()).float())
+    o = mm_tf32(p, vh, passes) * (1 / p.sum(-1, keepdim=True))
+    Hp, Wp = -(-H // ws) * ws, -(-W // ws) * ws
+    o = o.transpose(2, 3).reshape(B, Hp // ws, Wp // ws, ws, ws, C)
+    o = o.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C)
+    return o[:, :H, :W]
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """tf32 keeps 10 mantissa bits: values one ulp (2^-23) above 1 round
+    down, 2^-11 above 1 (a tie) rounds away from zero in both signs, and
+    the split's lo part holds what hi drops."""
+    x = torch.tensor([1 + 2.0 ** -23, 1 + 2.0 ** -11, -(1 + 2.0 ** -11),
+                      1 + 3 * 2.0 ** -11, 3.0], dtype=torch.float32)
+    want = torch.tensor([1.0, 1 + 2.0 ** -10, -(1 + 2.0 ** -10),
+                         1 + 4 * 2.0 ** -11, 3.0], dtype=torch.float32)
+    assert torch.equal(tf32(x), want)
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        1000).astype(np.float32))
+    hi = tf32(r)
+    assert torch.equal(hi.view(torch.int32) & 0x1fff,
+                       torch.zeros(1000, dtype=torch.int32))
+    assert ((r - hi).abs() <= hi.abs() * 2.0 ** -11).all()
+    # hi + lo carries ~22 significant bits
+    assert ((hi + tf32(r - hi) - r).abs() <= r.abs() * 2.0 ** -21).all()
+
+
+# (B, N, C, heads, M): d = 16 and 32, M = 256 and ragged (100, 49)
+GSA_TF32_CASES = [(2, 160, 64, 4, 256), (1, 200, 64, 2, 256),
+                  (2, 100, 128, 8, 100), (1, 77, 64, 2, 100),
+                  (1, 50, 64, 2, 49)]
+
+
+@pytest.mark.parametrize("B,N,C,heads,M", GSA_TF32_CASES)
+def test_gsa_3xtf32_holds_fp32_tolerance(B, N, C, heads, M):
+    """K1's fp32 kernel in 3xTF32, emulated on the CPU in its order, stays
+    within the card's 2e-5 of the plain version and of stitchax's
+    `gsa_attention_ref` (stitchax/ops/pallas/gsa_attention.py:92)."""
+    rng = np.random.default_rng(B * 1000 + N + M)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, N, C), (B, M, C), (B, M, C)))
+    got = gsa_tf32_emulation(T(q), T(k), T(v), heads).numpy()
+    plain = tgsa.gsa_attention_plain(T(q), T(k), T(v), heads=heads).numpy()
+    ref = np.asarray(gsa_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), heads=heads))
+    np.testing.assert_allclose(got, plain, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=0)
+
+
+def _window_inputs_f32(rng, B, H, W, C, fused):
+    """K4's fp32 inputs as the main path gives them: with `fused` the
+    strided thirds of one qkv tensor and one bias row broadcast over the
+    window (stride 0), else three streams and per-position biases."""
+    T_ = WS * WS
+    if fused:
+        qkv = T(rng.standard_normal((B, H, W, 3 * C)).astype(np.float32))
+        bias = T((rng.standard_normal(3 * C) * .3).astype(np.float32))
+        qb, kb, vb = bias.split(C)
+        return (*qkv.split(C, -1), qb.expand(T_, C), kb.expand(T_, C),
+                vb[None])
+    return _window_inputs(rng, B, H, W, C)
+
+
+# (B, H, W, C, heads, fused): H, W not multiples of 7, d = 16 and 32
+WINDOW_TF32_CASES = [(2, 9, 12, 64, 4, True), (1, 15, 10, 64, 2, True),
+                     (2, 8, 13, 128, 4, False), (1, 16, 9, 128, 8, False)]
+
+
+@pytest.mark.parametrize("B,H,W,C,heads,fused", WINDOW_TF32_CASES)
+def test_window_3xtf32_holds_fp32_tolerance(B, H, W, C, heads, fused):
+    """K4's fp32 kernel in 3xTF32, emulated on the CPU in its order, stays
+    within the card's 2e-5 of the plain version and of stitchax's
+    `window_attention_split` (stitchax/ops/window_attention.py:52)."""
+    rng = np.random.default_rng(B * 1000 + H * 10 + W)
+    args = _window_inputs_f32(rng, B, H, W, C, fused)
+    if fused:
+        assert args[0].stride(2) == 3 * C and args[3].stride(0) == 0
+    got = window_tf32_emulation(*args, heads=heads, ws=WS).numpy()
+    plain = twa.window_attention_plain(*args, heads=heads, ws=WS).numpy()
+    ref = np.asarray(window_attention_split(
+        *(jnp.asarray(a.numpy()) for a in args), heads=heads, ws=WS))
+    np.testing.assert_allclose(got, plain, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=0)
+
+
+def test_one_tf32_pass_misses_fp32_tolerance():
+    """Why the kernels split: a single TF32 product (hi * hi, P rounded to
+    tf32) is off by far more than 2e-5 in both kernels, where the 3xTF32
+    emulations above hold it."""
+    rng = np.random.default_rng(0)
+    q, k, v = (T(rng.standard_normal(s).astype(np.float32))
+               for s in ((1, 200, 64), (1, 256, 64), (1, 256, 64)))
+    plain = tgsa.gsa_attention_plain(q, k, v, heads=2)
+    one = gsa_tf32_emulation(q, k, v, 2, passes=1)
+    assert (one - plain).abs().max().item() > 1e-4
+    args = _window_inputs_f32(rng, 2, 9, 12, 64, True)
+    plain = twa.window_attention_plain(*args, heads=2, ws=WS)
+    one = window_tf32_emulation(*args, heads=2, ws=WS, passes=1)
+    assert (one - plain).abs().max().item() > 1e-4
+
+
 # ------------------------------- K2 ------------------------------------------
 
 @pytest.mark.parametrize("variant", ["opencv", "kornia"])

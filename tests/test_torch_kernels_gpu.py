@@ -57,6 +57,34 @@ def test_gsa_kernel_matches_plain(cuda, dtype, B, N, M, C, heads):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
+# K1's fp32 path (3xTF32; blocks of 8 or 12 warps of 16 query rows times
+# 1, 2 or 4 tiles, picked by the grid's size): N under, across and past a
+# block's rows, M in {49, 100, 256} (under one 64-key chunk, ragged, full),
+# one head, and B * heads far above the SM count
+GSA_F32_CASES = [(1, 1, 49, 64, 2),        # d = 32, one query row
+                 (3, 129, 49, 64, 4),      # d = 16
+                 (2, 513, 100, 256, 8),    # d = 32
+                 (12, 4103, 256, 256, 8),  # d = 32, 4 tiles a warp, ragged
+                 (40, 300, 256, 128, 8),   # d = 16, B * heads = 320
+                 (700, 65, 100, 64, 4),    # d = 16, B * heads = 2800
+                 (2, 50, 256, 16, 1),      # d = 16, one head
+                 (1, 16461, 256, 128, 4)]  # d = 32, the stitch's N, ragged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M,C,heads", GSA_F32_CASES)
+def test_gsa_fp32_kernel_edges(cuda, B, N, M, C, heads):
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(s, generator=g).to(cuda)
+               for s in ((B, N, C), (B, M, C), (B, M, C)))
+    before = library.launches["gsa_attention"]
+    got = tgsa.gsa_attention(q, k, v, heads=heads)
+    assert library.launches["gsa_attention"] == before + 1
+    want = tgsa.gsa_attention_plain(q, k, v, heads=heads)
+    # 3xTF32 keeps fp32's accuracy: summation order and ~22-bit products
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
 # K2 shapes (N, H, W): widths that are not a multiple of the 4 pixels a
 # thread takes, H * W not a multiple of a block's pixels, one center, the
 # default configuration's canvas, and more centers than 48 KiB of shared
@@ -202,6 +230,74 @@ def test_window_kernel_refuses_misaligned_bf16(cuda):
         twa.window_attention(qx, kx, vx, b, b, b[:1], heads=2, ws=7)
 
 
+def _window_args(B, H, W, C, heads, fused, broadcast, dtype, ws, g, cuda):
+    """K4's inputs: the streams as the strided thirds of one qkv tensor
+    (`fused`) or three tensors, the q / k biases one row broadcast over the
+    window (stride 0, `broadcast`) or one row per window position."""
+    T = ws * ws
+    if fused:
+        qkv = torch.randn(B, H, W, 3 * C, generator=g).to(cuda, dtype)
+        qx, kx, vx = qkv.split(C, -1)
+    else:
+        qx, kx, vx = (torch.randn(B, H, W, C, generator=g).to(cuda, dtype)
+                      for _ in range(3))
+    if broadcast:
+        bias = (torch.randn(3 * C, generator=g) * .3).to(cuda, dtype)
+        qb, kb, vb = bias.split(C)
+        qb, kb = qb.expand(T, C), kb.expand(T, C)
+        vb = vb[None]
+    else:
+        qb, kb = ((torch.randn(T, C, generator=g) * .3).to(cuda, dtype)
+                  for _ in range(2))
+        vb = (torch.randn(1, C, generator=g) * .3).to(cuda, dtype)
+    return qx, kx, vx, qb, kb, vb
+
+
+# K4 at H, W in {7, 13, 64, 128} (one window, ragged windows, the main
+# path's maps), both stream layouts and both bias layouts, both head dims
+WINDOW_EDGE_CASES = [(1, 7, 7, 64, 2, True, True),
+                     (2, 7, 13, 128, 8, False, False),
+                     (1, 13, 7, 256, 8, True, False),
+                     (3, 13, 13, 64, 4, False, True),
+                     (1, 64, 128, 128, 4, True, True),
+                     (1, 128, 64, 256, 8, False, False),
+                     (2, 64, 64, 128, 8, True, False),
+                     (1, 128, 128, 128, 4, False, True),
+                     (4, 13, 64, 64, 2, True, True),
+                     (1, 128, 7, 32, 2, False, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,heads,fused,broadcast", WINDOW_EDGE_CASES)
+def test_window_kernel_edges(cuda, dtype, B, H, W, C, heads, fused,
+                             broadcast):
+    g = torch.Generator().manual_seed(7)
+    args = _window_args(B, H, W, C, heads, fused, broadcast, dtype, 7, g,
+                        cuda)
+    before = library.launches["window_attention"]
+    got = twa.window_attention(*args, heads=heads, ws=7)
+    assert library.launches["window_attention"] == before + 1
+    want = twa.window_attention_plain(*args, heads=heads, ws=7)
+    # fp32 (3xTF32): summation order and ~22-bit products; bf16: one bf16
+    # ulp of max |out|, as test_window_kernel_matches_plain
+    top = want.float().abs().max().item()
+    tol = (2e-5 if dtype == torch.float32
+           else 2.0 ** (math.floor(math.log2(top)) - 7))
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_window_kernel_refuses_misaligned_fp32(cuda):
+    """The fp32 kernel reads 16-byte chunks too: a stream whose token
+    stride is not a multiple of 4 values is refused."""
+    qkv = torch.randn(1, 7, 7, 3 * 64 + 2, device=cuda)
+    qx, kx, vx = qkv[..., :192].split(64, -1)
+    b = torch.zeros(49, 64, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        twa.window_attention(qx, kx, vx, b, b, b[:1], heads=2, ws=7)
+
+
 # the evaluation's shapes (stitchax_torch.evaluate, batch 12 at 512^2, fp32
 # nets): K1 at the context / feature encoders (B) and the cost perceiver
 # (8B), K3 at P = B x 64 x 64 maps of 64 x 64. The kernels form their
@@ -289,10 +385,11 @@ def test_cost_lookup_autograd_function(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", [4, 8])
 @pytest.mark.parametrize("fused", [False, True])
-def test_window_autograd_function(cuda, fused):
+def test_window_autograd_function(cuda, fused, heads):
     g = torch.Generator().manual_seed(5)
-    B, H, W, C, heads, ws = 2, 30, 33, 128, 4, 7
+    B, H, W, C, ws = 2, 30, 33, 128, 7
     T = ws * ws
     qkv = torch.randn(B, H, W, 3 * C, generator=g).to(cuda)
     qkv.requires_grad_(True)
