@@ -121,6 +121,29 @@ Phases, each printing one JSON line before the next begins:
                          the trained npz for the shared leaves) at 512^2 in
                          fp32: finite, K1 / K3 / K4 launched, ms a forward;
                          card against CPU at 128^2
+  pretrain_vs_stitchax   the MAE pretrain model (FlowFormerPretrain, the
+                         shipped widths, the trained npz's FlowFormer++
+                         leaves and a seeded pretrain head) at 368x496,
+                         batch 2, fp32 (TF32 off): its loss and every
+                         gradient leaf's norm against stitchax's on the same
+                         inputs and noise (tests/torch_reference/
+                         pretrain_stitchax_fp32.npz)
+  pretrain               the same model's step (forward, backward, AdamW) on
+                         a batch from CADataset + FlowAugmentor over
+                         demo_data: warm ms and its split, peak memory, the
+                         launches of K1 / K3 (r = 7 and r = 4 apart) / K4;
+                         each kernel held against its plain version and
+                         timed at the step's shapes (rows "...@pretrain")
+  dp_train               two ranks on the card (torch.distributed.run,
+                         gloo), one pair each, through the alignment step at
+                         512^2 (make_parallel_train_step): the all-reduced
+                         gradient, grad_norm and the updated tensors against
+                         one process's batch-2 step; then one rank over nccl
+  dp_evaluate            python -m stitchax_torch.evaluate under
+                         torch.distributed.run, two ranks on the card
+                         (gloo), over the committed 12-pair split: the
+                         one-card report, and every pair's PSNR / SSIM in
+                         the one-card order
 
 Then the kernel table (one JSON object), the nvidia-smi line, and the final
 `{"ok": true, "device": ...}` line. Any failed phase exits non-zero without
@@ -1659,7 +1682,8 @@ def evaluate_phase():
     nets (TF32 off) on the card, against stitchax's committed evaluation
     (EVAL_REFERENCE). Kernel launches counted over the evaluation; ms per
     batch of the alignment forward, warm; peak memory; the host's read
-    (decode + resize) per image."""
+    (decode + resize) per image. Returns (the report, the per-pair
+    results)."""
     import torch
 
     from stitchax_torch.align.adapter import AlignConfig
@@ -1730,6 +1754,7 @@ def evaluate_phase():
     res.update(_eval_vs_stitchax(per_pair, report, warped, valid))
     res["per_pair"] = [list(p) for p in per_pair]
     _check(res, EVAL_STITCHAX_TOL, "evaluate")
+    return report, per_pair
 
 
 def _eval_vs_stitchax(per_pair, report, warped, valid):
@@ -3289,9 +3314,771 @@ def na_flowformer_phase():
     torch.cuda.empty_cache()
 
 
+# ----------------------------- MAE pretraining -------------------------------
+
+PRETRAIN_REFERENCE = "tests/torch_reference/pretrain_stitchax_fp32.npz"
+PRETRAIN_HW = (368, 496)       # pic_size / the augmentor's crop_size
+PRETRAIN_BATCH = 2
+PRETRAIN_HEAD_SEED = 0         # convert.pretrain_variables' seed
+# the pretrain loss and every leaf's gradient norm in fp32 on the card (TF32
+# off) against stitchax's jitted loss and gradient on the CPU
+# (PRETRAIN_REFERENCE, the same inputs and weights); a leaf whose norm is
+# below 1e-6 of the largest is held by the largest
+PRETRAIN_TOL = {"loss_rel": 1e-4, "leaf_norm_rel": 1e-3}
+# the kernels of one pretrain forward (30 queries, encoder depth 3): K1 and
+# K4 once per twins block of four twins passes (2 x 4) and of the three
+# vertical layers, K3 at r = 7 (targets) and r = 4 (queries) per query
+EXPECT_PRETRAIN_LAUNCHES = {"gsa_attention": 11, "window_attention": 11,
+                            "cost_lookup": 60}
+EXPECT_PRETRAIN_RADII = {7: 30, 4: 30}
+
+
+def pretrain_model(device="cuda"):
+    """FlowFormerPretrain at the shipped widths: the trained npz's
+    FlowFormer++ leaves and a pretrain head seeded with PRETRAIN_HEAD_SEED
+    (convert.pretrain_variables), on `device`."""
+    from stitchax_torch import convert
+    from stitchax_torch.models.flowformer import (FlowFormerConfig,
+                                                  FlowFormerPretrain)
+
+    cfg = FlowFormerConfig()
+    tree = convert.pretrain_variables(convert.load_npz(CKPT, "flow"), cfg,
+                                      seed=PRETRAIN_HEAD_SEED)
+    return convert.load_jax_params(FlowFormerPretrain(cfg), tree).to(device)
+
+
+def _flat_grads(model):
+    """The model's gradients as {stitchax key string: float32 array}."""
+    import torch
+
+    from stitchax_torch import convert
+
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in model.named_parameters()}
+    return {convert._keystr(p): a for p, a in
+            convert._flatten(convert.params_to_jax(grads))}
+
+
+def pretrain_vs_stitchax_phase():
+    """One fp32 pretrain forward + backward (TF32 off) at 368x496, batch 2,
+    on stitchax's inputs (PRETRAIN_REFERENCE: two seeded pairs, the masking
+    and query noise) against its loss and gradient leaf norms."""
+    import torch
+
+    from stitchax_torch.ops.kernels import library
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    with np.load(os.path.join(REPO, PRETRAIN_REFERENCE)) as f:
+        ref = {k: f[k] for k in f.files}
+    model = pretrain_model()
+    args = [torch.as_tensor(np.asarray(ref[k], np.float32), device="cuda")
+            for k in ("img1", "img2", "noise", "query_noise")]
+    library.reset_launches()
+    loss = model(*args)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = dict(library.launches)
+    grads = _flat_grads(model)
+    names = [str(k) for k in ref["leaf_names"]]
+    want = ref["leaf_norms"]
+    got = np.array([np.linalg.norm(grads[k].astype(np.float64))
+                    for k in names])
+    rel = np.abs(got - want) / np.maximum(want, 1e-6 * want.max())
+    res = {"phase": "pretrain_vs_stitchax", "image_size": list(PRETRAIN_HW),
+           "batch": PRETRAIN_BATCH, "dtype": "float32",
+           "reference": PRETRAIN_REFERENCE, "loss": float(loss.detach()),
+           "loss_stitchax": float(ref["loss"]),
+           "loss_rel": abs(float(loss) - float(ref["loss"]))
+           / abs(float(ref["loss"])),
+           "leaves": len(names), "leaf_norm_rel": float(rel.max()),
+           "worst_leaf": names[int(rel.argmax())],
+           "leaf_norm_rel_median": float(np.median(rel)),
+           "launches": launches,
+           "cost_lookup_by_radius": dict(library.cost_lookup_by_radius)}
+    if sorted(grads) != sorted(names):
+        emit(res)
+        raise RuntimeError("pretrain_vs_stitchax: the gradient's leaves are "
+                           "not stitchax's")
+    _check(res, PRETRAIN_TOL, "pretrain_vs_stitchax")
+    del model, args, loss
+    torch.cuda.empty_cache()
+
+
+def pretrain_pair():
+    """A batch of PRETRAIN_BATCH pairs as the pretraining loader makes them:
+    CADataset over a {phase}.txt (written under a temporary directory)
+    listing demo_data's pairs, with the FlowAugmentor's crop to 368x496.
+    Returns (img1, img2) float32 (B, H, W, 3) and ms per sample read."""
+    import shutil
+    import tempfile
+
+    from stitchax_torch.data.flow_datasets import CADataset
+
+    root = tempfile.mkdtemp(prefix="stitchax_pretrain_")
+    try:
+        os.makedirs(os.path.join(root, "img"))
+        lines = []
+        for pair in DEMO_PAIRS:
+            names = []
+            for i in (1, 2):
+                name = f"{pair}_{i}.jpg"
+                os.symlink(os.path.join(REPO, "demo_data", pair,
+                                        f"input{i}.jpg"),
+                           os.path.join(root, "img", name))
+                names.append(name)
+            lines.append(" ".join(names))
+        with open(os.path.join(root, "train.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        # the demo images (448x384) are smaller than the crop: the
+        # augmentor's resize, which scales an image above the crop, always
+        # runs (stitchax's draws it with probability 0.8 and cannot crop
+        # without it)
+        ds = CADataset(root, aug_params={"crop_size": PRETRAIN_HW,
+                                         "spatial_aug_prob": 1.0},
+                       phase="train")
+        t0 = time.perf_counter()
+        items = [ds[i % len(ds)] for i in range(PRETRAIN_BATCH)]
+        read_ms = (time.perf_counter() - t0) * 1e3 / PRETRAIN_BATCH
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return (np.stack([it["image1"] for it in items]),
+            np.stack([it["image2"] for it in items]), read_ms)
+
+
+def _capture_kernel_inputs(run):
+    """{(kernel, input shapes...): [calls, the first call's arguments]} of
+    every K1 / K3 / K4 launch in run() (the arguments kept as they were
+    passed, strides included)."""
+    import torch
+
+    from stitchax_torch.ops.kernels import (cost_lookup, gsa_attention,
+                                            window_attention)
+
+    seen, patched = {}, []
+    for mod, name in ((gsa_attention, "gsa_attention"),
+                      (cost_lookup, "cost_lookup"),
+                      (window_attention, "window_attention")):
+        orig = mod._launch
+
+        def wrap(*args, _orig=orig, _name=name):
+            key = (_name,) + tuple(tuple(a.shape) if isinstance(
+                a, torch.Tensor) else a for a in args)
+            entry = seen.setdefault(key, [0, args])
+            entry[0] += 1
+            return _orig(*args)
+
+        mod._launch = wrap
+        patched.append((mod, orig))
+    try:
+        run()
+    finally:
+        for mod, orig in patched:
+            mod._launch = orig
+    return seen
+
+
+def _kernel_entry(key, args):
+    """One captured call held against its plain version and timed: max
+    |diff|, ms / device ms of the kernel, its plain version and its PyTorch
+    yardstick, and its bound (K1 / K4 at fp32 accuracy on the tensor
+    cores, as their fp32 paths reach it; K3 at the CUDA cores' fp32
+    rate)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stitchax_torch.ops.kernels import (cost_lookup, gsa_attention,
+                                            window_attention as wa)
+
+    kernel = key[0]
+    if kernel == "gsa_attention":
+        q, k, v, heads = args
+        B, N, C = q.shape
+        Nk = k.shape[1]
+        fn = lambda: gsa_attention.gsa_attention(q, k, v, heads=heads)
+        plain = lambda: gsa_attention.gsa_attention_plain(q, k, v,
+                                                          heads=heads)
+        d = C // heads
+        qh, kh, vh = (t.reshape(B, -1, heads, d).transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+        bound = fp32_attention_bound(4 * (2 * B * N * C + 2 * B * Nk * C),
+                                     4.0 * B * N * Nk * C, B * N * Nk * heads)
+        entry = {"B": B, "N": N, "keys": Nk, "C": C, "heads": heads,
+                 "tol": TOL["gsa_attention_fp32"], **bound}
+    elif kernel == "cost_lookup":
+        cm, coords, r = args
+        P, H2, W2 = cm.shape
+        fn = lambda: cost_lookup.cost_lookup(cm, coords, r)
+        plain = lambda: cost_lookup.cost_lookup_plain(cm, coords, r)
+        off = torch.arange(-r, r + 1, device=cm.device, dtype=torch.float32)
+        win = off.numel()
+        c = coords.float()
+        gx = (c[:, 0, None, None] + off[:, None]).expand(-1, -1, win)
+        gy = (c[:, 1, None, None] + off[None, :]).expand(-1, win, -1)
+        grid = torch.stack([gx * (2.0 / (W2 - 1)) - 1.0,
+                            gy * (2.0 / (H2 - 1)) - 1.0], -1)
+        lib = lambda: F.grid_sample(cm[:, None], grid, mode="bilinear",
+                                    padding_mode="zeros", align_corners=True)
+        # this run's taps: the (2r+2)^2 neighbourhood of each center that
+        # lies inside its map, read once; coordinates read, window written
+        steps = torch.arange(2 * r + 2, device=cm.device)
+        f0 = torch.floor(c).long() - r
+        inx = ((f0[:, :1] + steps >= 0) & (f0[:, :1] + steps < W2)).sum(1)
+        iny = ((f0[:, 1:] + steps >= 0) & (f0[:, 1:] + steps < H2)).sum(1)
+        touched = float((inx * iny).sum().item())
+        b, by = bound_ms(touched * cm.element_size() + P * 2 * 4
+                         + P * win * win * 4,
+                         P * (3 * win * (win + 1) + 3 * win * win),
+                         PEAK["fp32"])
+        entry = {"P": P, "H2": H2, "W2": W2, "r": r,
+                 "tol": TOL["cost_lookup"], "bound_ms": b, "bound_by": by}
+    else:
+        qx, kx, vx, qb, kb, vb, heads, ws = args
+        B, H, W, C = qx.shape
+        T = ws * ws
+        fn = lambda: wa.window_attention(qx, kx, vx, qb, kb, vb, heads=heads,
+                                         ws=ws)
+        plain = lambda: wa.window_attention_plain(qx, kx, vx, qb, kb, vb,
+                                                  heads=heads, ws=ws)
+        q, k, v = wa.biased_windows(qx, kx, vx, qb, kb, vb, ws)
+        d = C // heads
+        qh, kh, vh = (t.reshape(-1, T, heads, d).transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+        n_win = q.shape[0] * q.shape[1]
+        bound = fp32_attention_bound(4 * (4 * B * H * W * C + 2 * T * C + C),
+                                     4.0 * n_win * T * T * C,
+                                     n_win * T * T * heads)
+        entry = {"B": B, "H": H, "W": W, "C": C, "heads": heads, "ws": ws,
+                 "tol": TOL["window_attention_fp32"], **bound}
+    with torch.no_grad():
+        err = (fn().float() - plain().float()).abs().max().item()
+    entry.update(kernel=kernel, dtype=str(args[0].dtype).split(".")[-1],
+                 max_abs_err=err, ms=cuda_time(fn, iters=5),
+                 device_ms=device_ms(fn, iters=5),
+                 plain_ms=cuda_time(plain, iters=3, warmup=1),
+                 library_ms=cuda_time(lib, iters=5),
+                 library_device_ms=device_ms(lib, iters=5))
+    return entry
+
+
+PRETRAIN_ROWS = (
+    ("gsa_attention", None, "stitchax_torch/csrc/gsa_attention.cu",
+     "stitchax/ops/pallas/gsa_attention.py:51"),
+    ("cost_lookup", 7, "stitchax_torch/csrc/cost_lookup.cu",
+     "stitchax/ops/pallas/cost_lookup.py:121"),
+    ("cost_lookup", 4, "stitchax_torch/csrc/cost_lookup.cu",
+     "stitchax/ops/pallas/cost_lookup.py:121"),
+    ("window_attention", None, "stitchax_torch/csrc/window_attention.cu",
+     "tools/exp_window_attn.py:96"))
+
+
+def pretrain_kernel_rows(captured, launches, by_radius):
+    """The kernel table's rows at the pretrain step's shapes: per kernel
+    (K3 per radius), each captured call shape held against its plain
+    version and timed, summed over its calls in one forward."""
+    rows, detail = [], []
+    for kernel, r, source, replaces in PRETRAIN_ROWS:
+        calls = [(key, n, args) for key, (n, args) in captured.items()
+                 if key[0] == kernel and (r is None or key[-1] == r)]
+        row = {"name": f"{kernel}@pretrain" + (f"_r{r}" if r else ""),
+               "route": "cuda", "source": source, "replaces": replaces,
+               "launches": by_radius.get(r, 0) if r else launches[kernel],
+               "max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0,
+               "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "library_device_ms": 0.0}
+        share = {"bytes": 0.0, "operations": 0.0}
+        for key, n, args in calls:
+            e = _kernel_entry(key, args)
+            e["calls"] = n
+            detail.append({"phase_shapes": "pretrain", **e})
+            row["max_abs_err"] = max(row["max_abs_err"], e["max_abs_err"])
+            for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                      "library_ms", "library_device_ms"):
+                row[k] += n * e[k]
+            share[e["bound_by"]] += n * e["bound_ms"]
+        row["bound_by"] = max(share, key=share.get)
+        row["calls_captured"] = sum(n for _, n, _ in calls)
+        rows.append(row)
+    return rows, detail
+
+
+def pretrain_phase(smi):
+    """The MAE pretrain step on the card at 368x496, batch 2, fp32 (TF32
+    off), the shipped widths and the carried weights, on a batch from
+    CADataset + FlowAugmentor: forward + backward + one AdamW update
+    (clip, one-cycle), launches of K1 / K3 (r = 7 and r = 4 apart) / K4 in
+    one step, warm ms of the step and its parts, peak memory; then the
+    three kernels' rows at the step's shapes. Returns the rows."""
+    import torch
+
+    from stitchax_torch.ops.kernels import library
+    from stitchax_torch.train.optim import (OptimConfig, apply_updates,
+                                            fetch_optimizer)
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    i1, i2, read_ms = pretrain_pair()
+    model = pretrain_model()
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    B, (H, W) = PRETRAIN_BATCH, PRETRAIN_HW
+    H1, W1 = H // 8, W // 8
+    L = (-(-H1 // cfg.patch_size)) * (-(-W1 // cfg.patch_size))
+    a, b = (torch.from_numpy(x).cuda() for x in (i1, i2))
+    noise = torch.rand(B * H1 * W1, L, device="cuda", generator=g)
+    qnoise = torch.rand(cfg.query_num, B, H1, W1, 2, device="cuda",
+                        generator=g)
+    params = dict(model.named_parameters())
+    tx = fetch_optimizer(OptimConfig(num_steps=100))
+    opt = [tx.init(params)]
+    split = {}
+
+    def step(timings=None):
+        t0 = time.perf_counter()
+        loss = model(a, b, noise, qnoise)
+        if timings is not None:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        names = list(params)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [params[n] for n in names])))
+        if timings is not None:
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        updates, opt[0] = tx.update(grads, opt[0], params)
+        apply_updates(params, updates)
+        if timings is not None:
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for k, v in (("forward_ms", t1 - t0), ("backward_ms", t2 - t1),
+                         ("update_ms", t3 - t2)):
+                timings.setdefault(k, []).append(v * 1e3)
+        return loss
+
+    step()                                     # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    library.reset_launches()
+    loss = step()
+    torch.cuda.synchronize()
+    launches = dict(library.launches)
+    by_radius = dict(library.cost_lookup_by_radius)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t) * 1e3)
+    for _ in range(2):
+        step(split)
+    res = {"phase": "pretrain", "image_size": [H, W], "batch": B,
+           "dtype": "float32", "encoder_depth": cfg.encoder_depth,
+           "latent_tokens": cfg.cost_latent_token_num,
+           "query_num": cfg.query_num, "gt_r": cfg.gt_r,
+           "mask_ratio": cfg.mask_ratio,
+           "weights": f"{WEIGHTS} (FlowFormer++ leaves) + pretrain head "
+                      f"seeded {PRETRAIN_HEAD_SEED}",
+           "data": "CADataset + FlowAugmentor over demo_data",
+           "read_ms_per_sample": read_ms, "loss": float(loss.detach()),
+           "finite": bool(torch.isfinite(loss).item()),
+           "warm_step_ms": warm, "split_ms": split, "peak_mem_gib": peak,
+           "launches": launches, "cost_lookup_by_radius": by_radius,
+           "card": smi}
+    bad = {k: launches.get(k) for k, n in EXPECT_PRETRAIN_LAUNCHES.items()
+           if launches.get(k) != n}
+    bad.update({f"r={r}": by_radius.get(r)
+                for r, n in EXPECT_PRETRAIN_RADII.items()
+                if by_radius.get(r) != n})
+    if not res["finite"] or bad:
+        emit(res)
+        raise RuntimeError(f"pretrain: loss finite {res['finite']}, "
+                           f"launches off {bad}")
+    with torch.no_grad():
+        captured = _capture_kernel_inputs(
+            lambda: model(a, b, noise, qnoise))
+    rows, detail = pretrain_kernel_rows(captured, launches, by_radius)
+    bad = sorted({d["kernel"] for d in detail
+                  if not d["max_abs_err"] <= d["tol"]})
+    off = [r["name"] for r in rows if r["calls_captured"] != r["launches"]]
+    res.update(kernels=detail, ok=not bad and not off)
+    emit(res)
+    if bad or off:
+        raise RuntimeError(f"pretrain: kernels disagree with their plain "
+                           f"versions {bad}; calls off {off}")
+    del model, params, opt, captured, a, b, noise, qnoise
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------- data parallelism --------------------------------
+
+DP_RANKS = 2
+# each data-parallel run against one process on the card, on the same global
+# batch of two pairs: the all-reduced gradient (every leaf's max |diff| by
+# the largest |g| of all, 1e-5), grad_norm and the losses
+# relative, and after the AdamW update the share of elements off by more
+# than 0.01 lr0 (an element whose gradient is near eps may flip its sign:
+# 2 lr0 apart). The card aligns a pair at batch 1 a little differently than
+# at batch 2 (other convolution and GEMM algorithms; `batch_numerics` reads
+# it: the flow, the offsets, the occlusion mask's flips), which the hard
+# thresholds carry into the gradient (ROADMAP C1). So each run is held
+# at DP_EXACT_TOL to the one-process step at its own per-rank
+# shapes: nccl_1 (one rank of two pairs) to the batch-2 step, gloo_2 (two
+# ranks of one pair) to `per_pair`, one process aligning each pair at batch
+# 1 with the loss over both pairs' outputs (no collective, no surrogate).
+# gloo_2 against the batch-2 step is held at about 10x its reading (PERF.md)
+DP_EXACT_TOL = {"grad_rel": 1e-5, "grad_norm_rel": 1e-5, "loss_rel": 1e-5,
+                "updated_off_share": 1e-3}
+DP_TRAIN_TOL = {
+    "nccl_1 vs batch2": DP_EXACT_TOL,
+    "gloo_2 vs per_pair": DP_EXACT_TOL,
+    "gloo_2 vs batch2": {"grad_rel": 3e-2, "grad_norm_rel": 4e-4,
+                         "loss_rel": 6e-5, "updated_off_share": 5e-2},
+}
+DP_LR0 = 3.125e-6 / 25          # OptimConfig()'s first one-cycle rate
+DP_REFERENCES = ("batch2", "per_pair")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _torchrun(nproc, argv, cwd, timeout=600):
+    """python -m torch.distributed.run with `nproc` ranks on this host
+    (localhost rendezvous on a free port); the output goes to
+    chiprun_out/ if it exists. Raises on a non-zero exit."""
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc_per_node", str(nproc), "--nnodes", "1",
+           "--master_addr", "localhost", "--master_port",
+           str(_free_port()), *argv]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    log_dir = os.path.join(REPO, "chiprun_out")
+    if os.path.isdir(log_dir):
+        with open(os.path.join(log_dir, "torchrun.log"), "a") as f:
+            f.write(f"$ {' '.join(cmd)}\n{out.stdout}\n{out.stderr}\n")
+    if out.returncode != 0:
+        raise RuntimeError(f"torchrun {argv[:2]} exited {out.returncode}: "
+                           f"{out.stderr[-2000:]}")
+    return secs
+
+
+def _dp_pairs(device="cuda"):
+    """The first DP_RANKS committed synthetic pairs at 512^2 (the global
+    batch)."""
+    import torch
+
+    from stitchax_torch.data.udis import UDISDataset
+
+    ds = UDISDataset(os.path.join(REPO, SYNTH), phase="testing",
+                     size=(TRAIN_SIZE, TRAIN_SIZE))
+    items = [ds[i] for i in range(DP_RANKS)]
+    return [torch.from_numpy(np.stack([it[k] for it in items])).to(device)
+            for k in ("image1", "image2")]
+
+
+def _dp_compare(grads, params, metrics, ref):
+    """One run's gradient, updated tensors and metrics against a reference
+    (`_dp_reference`)."""
+    top = max(g.abs().max().item() for g in ref["grads"].values())
+    worst, own, worst_leaf = 0.0, 0.0, None
+    for k, g in ref["grads"].items():
+        d = (grads[k].cpu() - g).abs().max().item()
+        worst = max(worst, d / top)
+        r = d / max(g.abs().max().item(), 1e-6 * top)
+        if r >= own:
+            own, worst_leaf = r, k
+    upd, off, n = 0.0, 0, 0
+    for k, p in ref["params"].items():
+        d = (params[k].detach().cpu() - p).abs()
+        upd = max(upd, d.max().item() / DP_LR0)
+        off += int((d > 0.01 * DP_LR0).sum())
+        n += d.numel()
+    return {"grad_rel": worst, "grad_leaf_rel_own_scale": own,
+            "worst_leaf": worst_leaf,
+            "grad_norm_rel": abs(metrics["grad_norm"] - ref["metrics"][
+                "grad_norm"]) / ref["metrics"]["grad_norm"],
+            "loss_rel": max(abs(metrics[k] - v) / abs(v) for k, v in
+                            ref["metrics"].items() if k != "grad_norm"),
+            "updated_lr0": upd, "updated_off_share": off / n}
+
+
+def _dp_train_rank(out_dir, backend):
+    """A rank of `dp_train` (started by torch.distributed.run): the
+    alignment step over its block of the global batch through
+    make_parallel_train_step; rank 0 holds its all-reduced gradient, its
+    updated tensors and its metrics against each reference in out_dir and
+    writes out_dir/<backend>_<world>.json."""
+    import torch
+
+    from stitchax_torch.parallel import (all_reduce_mean_, make_mesh,
+                                         make_parallel_train_step,
+                                         shard_batch)
+    from stitchax_torch.utils.precision import fp32_exact
+
+    world = make_mesh(backend=backend, device="cuda:0")
+    fp32_exact()
+    _, state, step, _ = _train_models()
+    block = shard_batch(tuple(_dp_pairs()), world)
+    _, grads = step.loss_and_grads(state, *block, world=world)
+    all_reduce_mean_(list(grads.values()), world)
+    pstep = make_parallel_train_step(step, world)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, metrics = pstep(state, *block)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    if world.is_main:
+        m = {k: float(v) for k, v in metrics.items()}
+        res = {"backend": world.backend, "world": world.size,
+               "batch_per_rank": block[0].shape[0], "metrics": m,
+               "step_ms": step_ms,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        for name in DP_REFERENCES:
+            ref = torch.load(os.path.join(out_dir, f"ref_{name}.pt"),
+                             weights_only=True)
+            res[f"vs_{name}"] = _dp_compare(grads, state.params, m, ref)
+            del ref
+        with open(os.path.join(out_dir, f"{world.backend}_{world.size}.json"),
+                  "w") as f:
+            json.dump(res, f)
+    world.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _batch_numerics(homo, flow, a, b):
+    """The first pair aligned alone (batch 1) against within the batch on
+    the card, without gradient: the last flow's max |diff|, the
+    homography offsets' and the occlusion mask's flipped pixels."""
+    import torch
+
+    from stitchax_torch.align.adapter import AlignConfig
+    from stitchax_torch.train.trainer import (align_train_forward,
+                                              occlusion_mask)
+
+    cfg = AlignConfig()
+    with torch.no_grad():
+        one = align_train_forward(homo, flow, a[:1], b[:1], cfg)
+        both = align_train_forward(homo, flow, a, b, cfg)
+        occ1 = occlusion_mask(flow, one, a[:1], cfg)
+        occ2 = occlusion_mask(flow, both, a, cfg)
+    return {"flow_max_abs_px": (one["flow_predictions"][-1]
+                                - both["flow_predictions"][-1][:1]
+                                ).abs().max().item(),
+            "offsets_max_abs": (one["offsets"] - both["offsets"][:1]
+                                ).abs().max().item(),
+            "occlusion_flips": int((occ1 != occ2[:1]).sum().item())}
+
+
+def _per_pair_loss_and_grads(state, homo, flow, a, b):
+    """One process, the ranks' shapes: each pair aligned (and its occlusion
+    mask found) at batch 1, the loss over both pairs' outputs concatenated,
+    one backward. (losses, {name: gradient})."""
+    import torch
+
+    from stitchax_torch.align.adapter import AlignConfig
+    from stitchax_torch.train.losses import (LossConfig,
+                                             sequence_alignment_loss)
+    from stitchax_torch.train.trainer import (align_train_forward,
+                                              occlusion_mask)
+
+    cfg = AlignConfig()
+    fwds = [align_train_forward(homo, flow, a[j:j + 1], b[j:j + 1], cfg)
+            for j in range(a.shape[0])]
+    occ = torch.cat([occlusion_mask(flow, f, a[j:j + 1], cfg)
+                     for j, f in enumerate(fwds)])
+    preds = [torch.cat(p) for p in zip(*(f["flow_predictions"]
+                                         for f in fwds))]
+    losses = sequence_alignment_loss(
+        a, torch.cat([f["output_H"] for f in fwds]), preds, occ,
+        LossConfig())
+    names = list(state.params)
+    grads = torch.autograd.grad(losses["total"],
+                                [state.params[k] for k in names],
+                                allow_unused=True)
+    return ({k: v.detach() for k, v in losses.items()},
+            {k: torch.zeros_like(state.params[k]) if g is None else g
+             for k, g in zip(names, grads)})
+
+
+def _dp_reference(state, metrics, grads):
+    """{grads, the tensors after one clip + AdamW update from the fresh
+    state, metrics with grad_norm}, on the host; the state is not
+    changed."""
+    import torch
+
+    from stitchax_torch.train.optim import (OptimConfig, fetch_optimizer,
+                                            global_norm)
+
+    tx = fetch_optimizer(OptimConfig())
+    updates, _ = tx.update(grads, tx.init(state.params), state.params)
+    with torch.no_grad():
+        norm = float(global_norm(list(grads.values())))
+        params = {k: (p.detach() + updates[k]).cpu()
+                  for k, p in state.params.items()}
+    return {"grads": {k: g.cpu() for k, g in grads.items()},
+            "params": params,
+            "metrics": {**{k: float(v) for k, v in metrics.items()},
+                        "grad_norm": norm}}
+
+
+def dp_train_phase():
+    """Two ranks on the card (gloo, one pair each) through
+    make_parallel_train_step, then one rank over nccl through the same
+    wrapper, held to one process on the same global batch (DP_TRAIN_TOL):
+    its batch-2 step, and the same pairs aligned at batch 1 each
+    (`_per_pair_loss_and_grads`); with the card's batch-1 against batch-2
+    numerics of the first pair."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    _, state, step, (homo, flow) = _train_models()
+    a, b = _dp_pairs()
+    numerics = _batch_numerics(homo, flow, a, b)
+    out_dir = tempfile.mkdtemp(prefix="stitchax_dp_")
+    try:
+        ref = _dp_reference(state, *step.loss_and_grads(state, a, b))
+        one_process = ref["metrics"]
+        torch.save(ref, os.path.join(out_dir, "ref_batch2.pt"))
+        ref = _dp_reference(state, *_per_pair_loss_and_grads(
+            state, homo, flow, a, b))
+        torch.save(ref, os.path.join(out_dir, "ref_per_pair.pt"))
+        del state, step, ref, a, b, homo, flow
+        torch.cuda.empty_cache()
+        runs = {}
+        for backend, nproc in (("gloo", DP_RANKS), ("nccl", 1)):
+            secs = _torchrun(nproc, [os.path.join(REPO, "chip_smoke.py"),
+                                     "--dp-train-rank", out_dir, backend],
+                             cwd=out_dir)
+            with open(os.path.join(out_dir, f"{backend}_{nproc}.json")) as f:
+                runs[f"{backend}_{nproc}"] = {**json.load(f),
+                                              "command_s": secs}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res = {"phase": "dp_train", "image_size": TRAIN_SIZE,
+           "global_batch": DP_RANKS, "dtype": "float32",
+           "one_process": one_process, "batch_numerics": numerics,
+           "runs": runs, "tol": DP_TRAIN_TOL}
+    misses = []
+    for check, tol in DP_TRAIN_TOL.items():
+        run, ref = check.split(" vs ")
+        got = runs[run][f"vs_{ref}"]
+        misses += [f"{check}: {k}" for k, t in tol.items() if not got[k] <= t]
+    res["ok"] = not misses
+    emit(res)
+    if misses:
+        raise RuntimeError(f"dp_train: outside tolerance: {misses}")
+
+
+def _dp_evaluate_rank(out_json, argv):
+    """A rank of `dp_evaluate`'s second run: stitchax_torch.evaluate's main
+    with its per-pair results recorded; rank 0 writes them to out_json."""
+    import stitchax_torch.evaluate as ev
+
+    per_pair = []
+    validate = ev.validate_with_model
+    ev.validate_with_model = lambda *a, **kw: validate(
+        *a, per_pair=per_pair, **kw)
+    rc = ev.main(argv)
+    if os.environ.get("RANK", "0") == "0":
+        with open(out_json, "w") as f:
+            json.dump({"per_pair": per_pair}, f)
+    return rc
+
+
+def dp_evaluate_phase(one_card):
+    """`python -m stitchax_torch.evaluate` under torch.distributed.run with
+    two ranks on the card (gloo) over the committed 12-pair split, batch
+    12, then the same CLI's main with the per-pair results recorded. The
+    card aligns a pair at batch 6 a little differently than at batch 12
+    (other convolution algorithms, and the coverage is a hard threshold,
+    ROADMAP C5), so the two-rank run is held bit-equal to a one-card run at
+    the ranks' own batch (6): its report and every pair's PSNR / SSIM, in
+    the one-card order. Against the one-card batch-12 run (`evaluate`) it
+    must differ exactly as the one-card batch-6 run does."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from stitchax_torch.align.adapter import AlignConfig
+    from stitchax_torch.data.udis import PrefetchLoader, UDISDataset
+    from stitchax_torch.evaluate import load_models, validate_with_model
+
+    report_b12, pairs_b12 = one_card
+    ds = UDISDataset(os.path.join(REPO, SYNTH), phase="testing",
+                     size=(512, 512))
+    pairs_b6 = []
+    report_b6 = validate_with_model(
+        {}, PrefetchLoader(ds, batch_size=EVAL_BATCH // DP_RANKS,
+                           num_workers=12),
+        load_models(CKPT, "cuda"), AlignConfig(), per_pair=pairs_b6)
+    torch.cuda.empty_cache()
+    argv = ["--data_dir", os.path.join(REPO, SYNTH), "--ckpt_path", CKPT,
+            "--device", "cuda:0", "--backend", "gloo"]
+    work = tempfile.mkdtemp(prefix="stitchax_dp_eval_")
+    try:
+        cli_s = _torchrun(DP_RANKS, ["-m", "stitchax_torch.evaluate", *argv],
+                          cwd=work)
+        with open(os.path.join(work, "eval_result.json")) as f:
+            report = json.load(f)
+        out_json = os.path.join(work, "per_pair.json")
+        _torchrun(DP_RANKS, [os.path.join(REPO, "chip_smoke.py"),
+                             "--dp-evaluate-rank", out_json, "--", *argv],
+                  cwd=work)
+        with open(out_json) as f:
+            pairs = [tuple(p) for p in json.load(f)["per_pair"]]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def diff(a, b):
+        return {"names_equal": [p[0] for p in a] == [p[0] for p in b],
+                "psnr_max_abs": max(abs(x[1] - y[1]) for x, y in zip(a, b)),
+                "ssim_max_abs": max(abs(x[2] - y[2]) for x, y in zip(a, b)),
+                "bit_equal": a == b}
+
+    one, b6 = [tuple(p) for p in pairs_b12], [tuple(p) for p in pairs_b6]
+    res = {"phase": "dp_evaluate", "ranks": DP_RANKS, "backend": "gloo",
+           "batch": EVAL_BATCH, "pairs": len(pairs), "cli_s": cli_s,
+           "report": report,
+           "report_equals_one_card_batch6": report == report_b6,
+           "report_equals_one_card_batch12": report == report_b12,
+           "vs_one_card_batch6": diff(pairs, b6),
+           "vs_one_card_batch12": diff(pairs, one),
+           "one_card_batch6_vs_batch12": diff(b6, one)}
+    res["ok"] = (res["report_equals_one_card_batch6"]
+                 and res["vs_one_card_batch6"]["bit_equal"]
+                 and res["vs_one_card_batch12"]["names_equal"]
+                 and res["vs_one_card_batch12"]
+                 == res["one_card_batch6_vs_batch12"])
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("dp_evaluate: the two-rank evaluation is not the "
+                           "one-card evaluation")
+
+
 def main() -> int:
     import torch
 
+    args = sys.argv[1:]
+    if args[:1] == ["--dp-train-rank"]:          # a rank of dp_train
+        return _dp_train_rank(args[1], args[2])
+    if args[:1] == ["--dp-evaluate-rank"]:       # a rank of dp_evaluate
+        return _dp_evaluate_rank(args[1], args[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3306,7 +4093,6 @@ def main() -> int:
           **(b or {"path": str(library.library_path())})})
 
     img1, img2 = seeded_pair()
-    args = sys.argv[1:]
     if args[:1] == ["--profile"]:
         config = FAST
         if "--config" in args:
@@ -3349,7 +4135,7 @@ def main() -> int:
     sd_vs_stitchax_phase()
     jpeg_phase()
     cli_phase()
-    evaluate_phase()
+    one_card_evaluation = evaluate_phase()
     sd15_widths_phase()
 
     step_launches = train_vs_stitchax_phase()
@@ -3360,10 +4146,15 @@ def main() -> int:
     sd_train_vs_stitchax_phase()
     sd_train_phase()
     na_flowformer_phase()
+    pretrain_vs_stitchax_phase()
+    pretrain_rows = pretrain_phase(smi)
+    dp_train_phase()
+    dp_evaluate_phase(one_card_evaluation)
     for row in rows:
         if row["name"] in train_rows:
             row["train"] = {**train_rows[row["name"]],
                             "step_split_ms": split}
+    rows += pretrain_rows
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -24,6 +24,9 @@ leaves as bf16 bit patterns rounded to nearest even, as ml_dtypes rounds;
 or, with `bf16=False`, as float32 leaves under the plain key strings,
 uncompressed, which both packages' readers take too).
 
+`pretrain_variables` builds FlowFormerPretrain's tree from a FlowFormer
+tree (the shared leaves) and a seeded pretrain head.
+
 `load_flax_msgpack` reads flax's msgpack serialisation (e.g.
 results/transref_ckpt_r05_bf16.msgpack, written by
 `flax.serialization.to_bytes`) with numpy alone, and `save_flax_msgpack`
@@ -210,6 +213,46 @@ def load_jax_params(module: torch.nn.Module,
                              f"{tuple(own[k].shape)}")
     module.load_state_dict(sd, strict=True)
     return module
+
+
+# the recurrent decoder's leaves, which FlowFormerPretrain does not have
+_FLOW_DECODER_ONLY = ("proj", "att", "mask_head")
+
+
+def pretrain_variables(flow_variables: Dict[str, Any], cfg,
+                       seed: int = 0) -> Dict[str, Any]:
+    """FlowFormerPretrain's variables (stitchax flowformer.py:903) for a
+    FlowFormerConfig `cfg` from a FlowFormer tree ({'params': ...}, e.g.
+    load_npz(npz, 'flow')): the shared leaves as they are, the perceiver's
+    layers cut to cfg.encoder_depth, the recurrent decoder's own leaves
+    dropped, and the pretrain head (pretrain_head0/1/2, 1x1 convs Dq -> 2Dq
+    -> 2Dq -> gt_r^2) drawn from numpy's default_rng(seed): kernels ~ N(0,
+    1 / fan_in) as flax's lecun_normal draws them, biases 0. No pretrain
+    checkpoint is in the repo; both packages load the result."""
+    src = flow_variables["params"]
+    perceiver = dict(src["memory_encoder"]["cost_perceiver"])
+    for k in [k for k in perceiver if k.startswith(("encoder_layer",
+                                                    "vertical_layer"))]:
+        if int(k.rsplit("layer", 1)[1]) >= cfg.encoder_depth:
+            del perceiver[k]
+    decoder = {k: v for k, v in src["memory_decoder"].items()
+               if k not in _FLOW_DECODER_ONLY}
+    decoder["iteration"] = {k: v for k, v in decoder["iteration"].items()
+                            if k != "update_block"}
+    rng = np.random.default_rng(seed)
+    Dq = cfg.query_latent_dim
+    dims = (Dq, 2 * Dq, 2 * Dq, cfg.gt_r ** 2)
+    for i in range(3):
+        cin, cout = dims[i], dims[i + 1]
+        decoder[f"pretrain_head{i}"] = {
+            "kernel": (rng.standard_normal((1, 1, cin, cout))
+                       / np.sqrt(cin)).astype(np.float32),
+            "bias": np.zeros(cout, np.float32)}
+    return {"params": {
+        "context_encoder": src["context_encoder"],
+        "memory_encoder": {**src["memory_encoder"],
+                           "cost_perceiver": perceiver},
+        "memory_decoder": decoder}}
 
 
 # ------------------------- flax msgpack checkpoints ---------------------------

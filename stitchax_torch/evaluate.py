@@ -14,8 +14,16 @@ eval_result.json of stitchax's).
 The alignment is `train_eval_forward` at `image_size` (512^2 by default)
 with the homography net and FlowFormer++ in fp32, as stitchax's
 evaluation calls them, and TF32 off on the card. Batches of `batch_size`
-pairs run on one card (`cuda:<gpu>`; `--device cpu` for tests); stitchax's
-split of a batch across devices is not carried over.
+pairs run on one card (`cuda:<gpu>`; `--device cpu` for tests).
+
+Under `python -m torch.distributed.run --nproc_per_node R` the evaluation
+runs data-parallel, as stitchax's does over its devices (evaluate.py:69-95):
+each batch is padded to a multiple of R by repeating its last pair, each
+rank aligns its block on cuda:<LOCAL_RANK> (or `--device`), the outputs
+are gathered in the batch's order (`parallel.make_parallel_eval_step`) and
+the padded rows dropped; rank 0 scores them and writes the report.
+`--backend` picks the process group's (nccl on the card, gloo on the CPU by
+default; gloo runs two ranks on one card).
 """
 
 from __future__ import annotations
@@ -43,7 +51,12 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="square evaluation size; default the model "
                         "config's (512, the paper's protocol)")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device; default cuda:<gpu> ('cpu' for tests)")
+                   help="torch device; default cuda:<gpu>, a rank's "
+                        "cuda:<LOCAL_RANK> ('cpu' for tests)")
+    p.add_argument("--backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="process group backend of a data-parallel run "
+                        "(default nccl on the card, gloo on the CPU)")
     return p.parse_args(argv)
 
 
@@ -110,24 +123,37 @@ def masked_pairs(img1: np.ndarray, warped: np.ndarray, valid: np.ndarray):
 
 
 def validate_with_model(cfg, loader, models, align_cfg, eval_step=None,
-                        per_pair: Optional[list] = None) -> dict:
+                        per_pair: Optional[list] = None,
+                        world=None) -> Optional[dict]:
     """PSNR/SSIM over the loader's batches and the bucketed report.
     `models.device` takes the batches. With `per_pair`, each pair's
-    (name, psnr, ssim) is appended to it."""
+    (name, psnr, ssim) is appended to it. With a `world` of ranks, every
+    rank passes the same batches and aligns its block of each; rank 0
+    returns the report, the others None."""
     import torch
 
     from .metrics import psnr_batch, ssim_batch
+    from .parallel import make_parallel_eval_step, pad_to_world
 
     if eval_step is None:
         eval_step = make_eval_step(models, align_cfg)
+    parallel = world is not None and world.backend is not None
+    if parallel:
+        eval_step = make_parallel_eval_step(eval_step, world)
+    main = world is None or world.is_main
     psnr_list, ssim_list = [], []
     seen = 0
     for batch in loader:
         img1 = torch.from_numpy(batch["image1"]).to(models.device)
         img2 = torch.from_numpy(batch["image2"]).to(models.device)
+        n = img1.shape[0]
+        if parallel:
+            (img1, img2), n = pad_to_world([img1, img2], world)
         warped, valid = eval_step(img1, img2)
-        a, b = masked_pairs(batch["image1"], warped.cpu().numpy(),
-                            valid.cpu().numpy())
+        if not main:
+            continue
+        a, b = masked_pairs(batch["image1"], warped[:n].cpu().numpy(),
+                            valid[:n].cpu().numpy())
         p, s = psnr_batch(a, b, 255.0), ssim_batch(a, b, 7, 255.0)
         psnr_list += list(p)
         ssim_list += list(s)
@@ -136,7 +162,7 @@ def validate_with_model(cfg, loader, models, align_cfg, eval_step=None,
         seen += a.shape[0]
         print(f"evaluated {seen} pairs; last psnr "
               f"{psnr_list[-1]:.4f} ssim {ssim_list[-1]:.4f}", flush=True)
-    return bucket_report(psnr_list, ssim_list)
+    return bucket_report(psnr_list, ssim_list) if main else None
 
 
 def load_models(ckpt_path: str, device):
@@ -160,9 +186,13 @@ def load_models(ckpt_path: str, device):
 def main(argv: Optional[List[str]] = None) -> int:
     from .align.adapter import AlignConfig
     from .data.udis import PrefetchLoader, UDISDataset
+    from .parallel import cli_world, world_requested
     from .run.config import build_eval_config
 
     args = get_args(argv)
+    world = cli_world(args.device or (None if world_requested()
+                                      else f"cuda:{int(args.gpu)}"),
+                      args.backend)
     cfg = build_eval_config(args)
     if args.image_size:
         cfg.image_size = [args.image_size, args.image_size]
@@ -171,13 +201,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.max_pairs > 0:
         ds.pairs = ds.pairs[:args.max_pairs]
     loader = PrefetchLoader(ds, batch_size=args.batch_size, num_workers=12)
-    models = load_models(args.ckpt_path, args.device or
-                         f"cuda:{int(args.gpu)}")
+    models = load_models(args.ckpt_path, world.device)
     align_cfg = AlignConfig(
         use_fb_consistency_mask=cfg.get("use_fb_consistency_mask", True))
-    result = validate_with_model(cfg, loader, models, align_cfg)
-    with open("eval_result.json", "w") as f:
-        json.dump(result, f, indent=2)
+    result = validate_with_model(cfg, loader, models, align_cfg,
+                                 world=world)
+    if world.is_main:
+        with open("eval_result.json", "w") as f:
+            json.dump(result, f, indent=2)
+    world.barrier()
     return 0
 
 

@@ -1,10 +1,13 @@
-"""Pillow's `Image.resize(size, Image.BILINEAR)` on uint8 images, in numpy.
+"""Pillow's `Image.resize(size, Image.BILINEAR)` in numpy, on uint8 images
+and on float32 ones (Pillow's mode "F").
 
 Bit-equal to Pillow's Resample.c: a triangle filter whose support widens by
-the downscale factor (antialiasing), coefficients normalised in float64
-and then held as fixed point with PRECISION_BITS = 22, rounded; a
-horizontal pass, then a vertical one, each accumulating in integers from
-a rounding offset and clipping to uint8. An equal size is a copy.
+the downscale factor (antialiasing), coefficients normalised in float64; a
+horizontal pass, then a vertical one. For uint8 the coefficients are held
+as fixed point with PRECISION_BITS = 22, rounded, and each pass accumulates
+in integers from a rounding offset and clips to uint8. For float32 each
+pass accumulates in float64, tap by tap in order, with the float64
+coefficients, and rounds its output to float32. An equal size is a copy.
 """
 
 from __future__ import annotations
@@ -14,10 +17,10 @@ import numpy as np
 PRECISION_BITS = 32 - 8 - 2
 
 
-def _coefficients(in_size: int, out_size: int):
-    """precompute_coeffs + normalize_coeffs_8bpc for the bilinear filter:
-    (out_size, ksize) source indices and fixed-point weights (zero past
-    each output's window)."""
+def _weights(in_size: int, out_size: int):
+    """precompute_coeffs for the bilinear filter: (out_size, ksize) source
+    indices, float64 weights normalised per output (zero past each
+    output's window), and the window mask."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = 1.0 * filterscale
@@ -35,8 +38,15 @@ def _coefficients(in_size: int, out_size: int):
     for j in range(1, ksize):          # summed in order, as Pillow does
         ww += w[:, j:j + 1]
     w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
-    fixed = np.trunc(0.5 + w * (1 << PRECISION_BITS)).astype(np.int64)
     idx = np.minimum(xmin[:, None] + x[None], in_size - 1)
+    return idx, w, inside
+
+
+def _coefficients(in_size: int, out_size: int):
+    """_weights + normalize_coeffs_8bpc: the indices and fixed-point
+    weights."""
+    idx, w, inside = _weights(in_size, out_size)
+    fixed = np.trunc(0.5 + w * (1 << PRECISION_BITS)).astype(np.int64)
     return idx, np.where(inside, fixed, 0)
 
 
@@ -64,3 +74,38 @@ def resize_bilinear(img: np.ndarray, height: int, width: int) -> np.ndarray:
         kk = k.reshape(k.shape + (1,) * (img.ndim - 1))
         out = _clip8(half + (out[idx] * kk).sum(1)).astype(np.int64)
     return out.astype(np.uint8)
+
+
+def _float_pass(img: np.ndarray, in_size: int, out_size: int,
+                axis: int) -> np.ndarray:
+    """One pass of ImagingResample{Horizontal,Vertical}_32bpc along `axis`:
+    ss = sum over the window of pixel * k (float64, in order), stored as
+    float32."""
+    idx, w, inside = _weights(in_size, out_size)
+    src = np.moveaxis(img, axis, 0).astype(np.float64)
+    ss = np.zeros((out_size,) + src.shape[1:], np.float64)
+    shape = (out_size,) + (1,) * (src.ndim - 1)
+    for j in range(idx.shape[1]):
+        # taps past an output's window are skipped, as the C loop stops
+        tap = src[idx[:, j]] * w[:, j].reshape(shape)
+        ss = np.where(inside[:, j].reshape(shape), ss + tap, ss)
+    return np.moveaxis(ss.astype(np.float32), 0, axis)
+
+
+def resize_bilinear_float(img: np.ndarray, height: int,
+                          width: int) -> np.ndarray:
+    """(H, W) float32 -> (height, width) float32, as Pillow's BILINEAR
+    resize of a mode "F" image."""
+    img = np.asarray(img)
+    if img.dtype != np.float32 or img.ndim != 2:
+        raise ValueError(f"resize_bilinear_float: (H, W) float32 input, got "
+                         f"{img.dtype} {img.shape}")
+    H, W = img.shape
+    if (H, W) == (height, width):
+        return img.copy()
+    out = img
+    if width != W:
+        out = _float_pass(out, W, width, 1)
+    if height != H:
+        out = _float_pass(out, H, height, 0)
+    return out

@@ -10,6 +10,12 @@ iterations whose local cost lookup is the CUDA kernel K3
 flow (`upsample_all=False`, as stitchax's Stitcher builds it); training
 (`upsample_all=True`, stitchax's default) upsamples every iteration's
 prediction for the sequence loss. Inputs NHWC in [0, 255].
+
+`FlowFormerPretrain` is the MAE pretraining model (stitchax
+flowformer.py:903): the same encoders with the inner cost maps masked
+(`random_masking`, `CostPerceiverEncoder.pretrain`) and
+`MemoryDecoderPretrain`, which regresses the outer cost map's 15x15 window
+at random query points (K3 at r = 7 and r = 4).
 """
 
 from __future__ import annotations
@@ -51,6 +57,16 @@ class FlowFormerConfig:
     # batched over the depth (stitchax's default, which its trainer uses);
     # False upsamples only the last, as stitchax's Stitcher configures it
     upsample_all: bool = False
+    # MAE pretraining (FlowFormerPretrain): the share of cost-map patches
+    # masked, the target window (gt_r x gt_r of the outer cost map), the
+    # queries a step, query centers kept gt_r // 2 from the border, and
+    # the inner crop's offsets (stitchax flowformer.py:56-63)
+    mask_ratio: float = 0.5
+    gt_r: int = 15
+    query_num: int = 30
+    no_border: bool = True
+    H_offset: int = 0
+    W_offset: int = 0
 
 
 class CostMapPatchEmbed(nn.Module):
@@ -69,9 +85,11 @@ class CostMapPatchEmbed(nn.Module):
         self.ffn2 = Conv(dim + 64, dim + 64, 1)
         self.norm = nn.LayerNorm(dim + 64, eps=1e-5)
 
-    def forward(self, cost_maps):  # (B*, H2, W2, heads)
+    def forward(self, cost_maps, masks=None):  # (B*, H2, W2, heads)
         x, _ = pad_to_multiple(cost_maps, self.p)
         for i in range(3):
+            if masks is not None:       # MAE: masked tokens zeroed first
+                x = x * (1.0 - masks[i])
             x = getattr(self, f"proj{i}")(x)
             if i < 2:
                 x = F.relu(x)
@@ -98,7 +116,10 @@ class LatentCrossAttention(nn.Module):
         self.norm2 = nn.LayerNorm(D, eps=1e-5)
         self.ffn = TokenFfn(D)
 
-    def forward(self, latent, tgt):  # (1, K, D), (B*, N, Dt)
+    def forward(self, latent, tgt, ids_keep=None):  # (1, K, D), (B*, N, Dt)
+        if ids_keep is not None:        # MAE: the kept patches only
+            tgt = torch.gather(tgt, 1, ids_keep[..., None].expand(
+                -1, -1, tgt.shape[-1]))
         q = self.q(self.norm1(latent)).expand(tgt.shape[0], -1, -1)
         x = multi_head_attention(q, self.k(tgt), self.v(tgt), heads=8)
         x = latent + self.proj(x)
@@ -142,6 +163,32 @@ class VerticalSelfAttention(nn.Module):
         return self.global_block(self.local_block(x, context), context)
 
 
+def random_masking(noise: torch.Tensor, H2: int, W2: int, patch_size: int,
+                   mask_ratio: float):
+    """MAE cost-map masking (stitchax flowformer.py:188): noise (B, L)
+    scores, L the patches of the patch-padded (H2, W2) map; the
+    int(L * (1 - mask_ratio)) lowest scores are kept (a stable sort, as
+    jnp.argsort). Returns (ids_keep (B, len_keep), mask (B, L), [masks at
+    1, 1/2 and 1/4 of the padded map, (B, h, w, 1)]), 1 = masked."""
+    Hp = H2 + (-H2) % patch_size
+    Wp = W2 + (-W2) % patch_size
+    hd, wd = Hp // 8, Wp // 8
+    L = hd * wd
+    if noise.shape[-1] != L:
+        raise ValueError(f"random_masking: noise {tuple(noise.shape)} for "
+                         f"{L} patches")
+    len_keep = int(L * (1 - mask_ratio))
+    ids_shuffle = torch.argsort(noise, dim=1, stable=True)
+    ids_restore = torch.argsort(ids_shuffle, dim=1, stable=True)
+    mask = torch.ones_like(noise)
+    mask[:, :len_keep] = 0.0
+    mask = torch.gather(mask, 1, ids_restore)
+    m = mask.reshape(-1, hd, wd)
+    ups = [m.repeat_interleave(f, 1).repeat_interleave(f, 2)[..., None]
+           for f in (8, 4, 2)]
+    return ids_shuffle[:, :len_keep], mask, ups
+
+
 class CostPerceiverEncoder(nn.Module):
     def __init__(self, cfg: FlowFormerConfig):
         super().__init__()
@@ -162,12 +209,27 @@ class CostPerceiverEncoder(nn.Module):
 
     def forward(self, cost_maps, context):
         # cost_maps (B, H1, W1, H2, W2, heads); context (B, H1, W1, 256)
-        c = self.cfg
         B, H1, W1, H2, W2, heads = cost_maps.shape
+        return self._encode(cost_maps.reshape(B * H1 * W1, H2, W2, heads),
+                            context, B, H1, W1)
+
+    def pretrain(self, cost_volume_inner, context, noise):
+        """The MAE forward (stitchax flowformer.py:281): the inner cost maps
+        masked before the patch embedding, the latents cross-attending to
+        the kept patches only. noise (B*H1*W1, L)."""
+        c = self.cfg
+        B, H1, W1, H2, W2, heads = cost_volume_inner.shape
+        ids_keep, _, masks = random_masking(noise, H2, W2, c.patch_size,
+                                            c.mask_ratio)
+        return self._encode(
+            cost_volume_inner.reshape(B * H1 * W1, H2, W2, heads), context,
+            B, H1, W1, ids_keep=ids_keep, masks=masks)
+
+    def _encode(self, cm, context, B, H1, W1, ids_keep=None, masks=None):
+        c = self.cfg
         K, D = c.cost_latent_token_num, c.cost_latent_dim
-        cost_patches, _ = self.patch_embed(
-            cost_maps.reshape(B * H1 * W1, H2, W2, heads))
-        x = self.input_layer(self.latent_tokens, cost_patches)
+        cost_patches, _ = self.patch_embed(cm, masks)
+        x = self.input_layer(self.latent_tokens, cost_patches, ids_keep)
         short_cut = x
         for i in range(c.encoder_depth):
             x = getattr(self, f"encoder_layer{i}")(x)
@@ -206,6 +268,19 @@ class MemoryEncoder(nn.Module):
         feat_t, _ = self.feat_encoder(img2)
         cost = self.cost_volume(feat_s, feat_t).contiguous()
         return self.cost_perceiver(cost, context), cost
+
+    def pretrain(self, img1, img2, img1_inner, img2_inner, context, noise):
+        """The MAE forward (stitchax flowformer.py:329): the outer volume
+        correlates the inner img1 features with the full img2's, the inner
+        volume the two inner images' features, and the perceiver embeds
+        the masked inner volume. Returns (memory, outer, inner)."""
+        feat_t, _ = self.feat_encoder(img2)
+        feat_s_inner, _ = self.feat_encoder(img1_inner)
+        feat_t_inner, _ = self.feat_encoder(img2_inner)
+        cv_outer = self.cost_volume(feat_s_inner, feat_t).contiguous()
+        cv_inner = self.cost_volume(feat_s_inner, feat_t_inner).contiguous()
+        x = self.cost_perceiver.pretrain(cv_inner, context, noise)
+        return x, cv_outer, cv_inner
 
     def bidirectional(self, img1, img2, ctx1, ctx2):
         """Both directions through ONE batched perceiver call; returns
@@ -430,6 +505,115 @@ class MemoryDecoder(nn.Module):
         flows = convex_upsample_flow_b(
             torch.cat(flows_lr, 0), self.mask_head(torch.cat(nets, 0)))
         return list(flows.reshape(d, B, *flows.shape[1:]).unbind(0)), flow_lr
+
+
+class _PretrainQueryBlock(nn.Module):
+    """Query encoding + cross-attention of one pretrain query, with
+    `DecoderIteration`'s parameter names, so that one checkpoint loads into
+    both models."""
+
+    def __init__(self, cfg: FlowFormerConfig):
+        super().__init__()
+        Dq = cfg.query_latent_dim
+        win2 = (2 * cfg.lookup_radius + 1) ** 2 * cfg.cost_heads_num
+        self.flow_token_enc1 = Conv(win2, Dq, 1)
+        self.flow_token_enc2 = Conv(Dq, Dq, 1)
+        self.decoder_layer = DecoderCrossAttention(cfg)
+
+    def forward(self, cost_forward, key, value, query_coord):
+        B, H1, W1, _ = cost_forward.shape
+        Dq = self.flow_token_enc2.out_channels
+        q = self.flow_token_enc2(F.gelu(self.flow_token_enc1(cost_forward)))
+        coord_enc = linear_position_embedding_sine(
+            query_coord.reshape(B * H1 * W1, 1, 2), dim=Dq)
+        out = self.decoder_layer(q.reshape(B * H1 * W1, 1, Dq), key, value,
+                                 coord_enc)
+        return out.reshape(B, H1, W1, Dq)
+
+
+class MemoryDecoderPretrain(nn.Module):
+    """The MAE pretrain decoder (stitchax flowformer.py:848): each of the
+    `query_num` random query points probes the latent memory through the
+    inner map's (2 lookup_radius + 1)^2 window (K3, r = 4), and a 1x1 conv
+    head regresses the outer map's gt_r x gt_r window there (K3, r = 7),
+    normalized per pixel with the unbiased variance; the loss is the
+    per-query MSE summed over the queries. The cost maps and the query
+    coordinates carry no gradient (stitchax's stop_gradient)."""
+
+    def __init__(self, cfg: FlowFormerConfig):
+        super().__init__()
+        self.cfg = cfg
+        Dq = cfg.query_latent_dim
+        self.memory_k = nn.Linear(cfg.cost_latent_dim, Dq)
+        self.memory_v = nn.Linear(cfg.cost_latent_dim, Dq)
+        self.iteration = _PretrainQueryBlock(cfg)
+        self.pretrain_head0 = Conv(Dq, Dq * 2, 1)
+        self.pretrain_head1 = Conv(Dq * 2, Dq * 2, 1)
+        self.pretrain_head2 = Conv(Dq * 2, cfg.gt_r ** 2, 1)
+
+    def forward(self, cost_memory, cost_maps_outer, cost_maps_inner,
+                query_noise):
+        """query_noise (Q, B, H1, W1, 2): uniforms in [0, 1), one draw of
+        query coordinates per query."""
+        c = self.cfg
+        B, H1, W1, H2o, W2o, _ = cost_maps_outer.shape
+        radius = (c.gt_r - 1) // 2
+        cost_maps_outer = cost_maps_outer.detach()
+        cost_maps_inner = cost_maps_inner.detach()
+        key = self.memory_k(cost_memory)
+        value = self.memory_v(cost_memory)
+        offs = torch.tensor([c.W_offset // 8, c.H_offset // 8],
+                            dtype=torch.float32, device=query_noise.device)
+        loss = 0.0
+        for raw in query_noise.unbind(0):
+            if c.no_border:
+                co = torch.stack([raw[..., 0] * (W2o - c.gt_r),
+                                  raw[..., 1] * (H2o - c.gt_r)], -1) + radius
+            else:
+                co = torch.stack([raw[..., 0] * W2o, raw[..., 1] * H2o], -1)
+            co = co.detach()
+            ci = co - offs
+            tgt = encode_flow_token(cost_maps_outer, co, r=radius)
+            mean = tgt.mean(-1, keepdim=True)
+            var = tgt.var(-1, keepdim=True, correction=1)
+            tgt = (tgt - mean) / (var + 1e-6) ** 0.5
+            cost_forward = encode_flow_token(cost_maps_inner, ci,
+                                             r=c.lookup_radius)
+            cost_global = self.iteration(cost_forward, key, value, ci)
+            pred = self.pretrain_head2(F.gelu(self.pretrain_head1(
+                F.gelu(self.pretrain_head0(cost_global)))))
+            loss = loss + torch.mean((pred - tgt) ** 2)
+        return loss
+
+
+class FlowFormerPretrain(nn.Module):
+    """The MAE pretraining model (stitchax flowformer.py:903): FlowFormer's
+    encoders with the pretrain decoder; its parameters are FlowFormer's
+    (the same names) minus the recurrent decoder's, plus the pretrain
+    head. forward(image1, image2 NHWC [0, 255], noise (B*H1*W1, L),
+    query_noise (Q, B, H1, W1, 2)) -> the scalar loss."""
+
+    def __init__(self, cfg: FlowFormerConfig = FlowFormerConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.context_encoder = TwinsSVT()
+        self.memory_encoder = MemoryEncoder(cfg)
+        self.memory_decoder = MemoryDecoderPretrain(cfg)
+
+    def forward(self, image1, image2, noise, query_noise):
+        c = self.cfg
+        image1 = 2 * (image1 / 255.0) - 1.0
+        image2 = 2 * (image2 / 255.0) - 1.0
+        # each axis cropped on its own, so that one zero offset does not
+        # empty the other axis (stitchax flowformer.py:921-923)
+        H, W = image1.shape[1], image1.shape[2]
+        sl = (slice(None), slice(c.H_offset, H - c.H_offset),
+              slice(c.W_offset, W - c.W_offset))
+        image1_inner, image2_inner = image1[sl], image2[sl]
+        context, _ = self.context_encoder(image1_inner)
+        x, cv_outer, cv_inner = self.memory_encoder.pretrain(
+            image1, image2, image1_inner, image2_inner, context, noise)
+        return self.memory_decoder(x, cv_outer, cv_inner, query_noise)
 
 
 class FlowFormer(nn.Module):

@@ -237,6 +237,77 @@ class GlobalSubSampleAttnRPEContext(nn.Module):
         return self.proj(out)
 
 
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, nH*nW, ws*ws, C); H and W multiples of ws."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // ws, ws, W // ws, ws, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, (H // ws) * (W // ws), ws * ws, C)
+
+
+def window_merge(x: torch.Tensor, ws: int, H: int, W: int) -> torch.Tensor:
+    """The inverse of `window_partition`."""
+    B, C = x.shape[0], x.shape[-1]
+    x = x.reshape(B, H // ws, W // ws, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H, W, C)
+
+
+class GroupAttnRPEContext(nn.Module):
+    """Shifted-group windowed attention, the MAE-era variant (stitchax
+    twins.py:297; reference twins.py:64-151): the batch splits into five
+    equal groups whose key/value maps shift up / down / left / right / not
+    at all by one window before windowed attention. No configuration builds
+    it; it is plain attention in stitchax too, so no kernel here."""
+
+    def __init__(self, dim: int, num_heads: int, ws: int, vert_c_dim: int,
+                 context_dim: int = 256):
+        super().__init__()
+        self.num_heads, self.ws, self.vert_c_dim = num_heads, ws, vert_c_dim
+        self.context_proj = nn.Linear(context_dim, vert_c_dim)
+        self.q = nn.Linear(dim + vert_c_dim, dim)
+        self.k = nn.Linear(dim + vert_c_dim, dim)
+        self.v = nn.Linear(dim, dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x, context):  # x (B, H, W, C); context (B0, H, W, Cc)
+        B, H, W, C = x.shape
+        if B % 5:
+            raise ValueError("GroupAttnRPEContext needs a batch divisible "
+                             "by 5")
+        ws, Cqk = self.ws, C + self.vert_c_dim
+        x_qk = torch.cat([x, _project_context(self.context_proj, context, B)],
+                         -1)
+        x, _ = pad_to_multiple(x, ws)
+        x_qk, _ = pad_to_multiple(x_qk, ws)
+        Hp, Wp = x.shape[1], x.shape[2]
+        gy, gx = torch.meshgrid(
+            torch.arange(Hp, device=x.device, dtype=x.dtype),
+            torch.arange(Wp, device=x.device, dtype=x.dtype), indexing="ij")
+        enc = linear_position_embedding_sine(torch.stack([gx, gy], -1),
+                                             dim=Cqk)[None]
+        q = self.q(x_qk + enc)
+        kv = torch.cat([self.k(x_qk + enc), self.v(x)], -1)
+        # groups 0-3 shift by one window (edge rows / columns repeated),
+        # group 4 stays (stitchax twins.py:340-353)
+        n = B // 5
+        g = [kv[i * n:(i + 1) * n] for i in range(5)]
+        kv = torch.cat([
+            torch.cat([g[0][:, ws:], g[0][:, Hp - ws:]], 1),
+            torch.cat([g[1][:, :ws], g[1][:, :Hp - ws]], 1),
+            torch.cat([g[2][:, :, ws:], g[2][:, :, Wp - ws:]], 2),
+            torch.cat([g[3][:, :, :ws], g[3][:, :, :Wp - ws]], 2),
+            g[4]], 0)
+        k, v = kv.split(C, -1)
+        T, h = ws * ws, self.num_heads
+        d = C // h
+        qw, kw, vw = (window_partition(t, ws).reshape(B, -1, T, h, d)
+                      for t in (q, k, v))
+        logits = torch.einsum("bnihd,bnjhd->bnhij", qw, kw) * d ** -0.5
+        out = torch.einsum("bnhij,bnjhd->bnihd", torch.softmax(logits, -1),
+                           vw)
+        out = window_merge(out.reshape(B, -1, T, C), ws, Hp, Wp)[:, :H, :W]
+        return self.proj(out)
+
+
 class TwinsBlockRPEContext(nn.Module):
     """Pre-norm block around the RPE-context attention; ws == 1 -> global."""
 

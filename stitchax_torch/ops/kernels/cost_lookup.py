@@ -102,4 +102,6 @@ def _launch(cost_maps, coords, r: int) -> torch.Tensor:
         library.stream_of(cost_maps))
     library.check(err, "cost_lookup")
     library.launches["cost_lookup"] += 1
+    library.cost_lookup_by_radius[r] = (
+        library.cost_lookup_by_radius.get(r, 0) + 1)
     return out

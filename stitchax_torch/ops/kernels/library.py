@@ -37,6 +37,9 @@ launches: Dict[str, int] = {"gsa_attention": 0, "cost_lookup": 0,
                             "tps_grid": 0, "window_attention": 0}
 # of those, the launches made by an autograd Function's forward (under grad)
 grad_launches: Dict[str, int] = dict(launches)
+# K3's launches by lookup radius (r = 4 in the decoder, r = 7 for the MAE
+# pretrain targets)
+cost_lookup_by_radius: Dict[int, int] = {}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -44,6 +47,7 @@ _lib: Optional[ctypes.CDLL] = None
 def reset_launches() -> None:
     for k in launches:
         launches[k] = grad_launches[k] = 0
+    cost_lookup_by_radius.clear()
 
 
 def sources() -> List[Path]:

@@ -1,6 +1,7 @@
 """stitchax_torch.train: the alignment trainer (port of stitchax/train/).
 
-`python -m stitchax_torch.train` runs it (train.py's flags, on one card).
+`python -m stitchax_torch.train` runs it (train.py's flags; one card, or
+one rank a card under torch.distributed.run).
 `transref_trainer` is the TransRef trainer's step (train_transref.py's,
 run by `python -m stitchax_torch.train_transref`), `sd_inpaint_trainer`
 the SD inpainting stack's VAE and diffusion steps (run by `python -m

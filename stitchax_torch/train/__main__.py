@@ -1,13 +1,26 @@
-"""The training CLI of the port: train.py's alignment trainer on one card.
+"""The training CLI of the port: train.py's alignment trainer.
 
     python -m stitchax_torch.train --data_dir UDIS-D/ \
         --init_npz results/ckpt_r05_bf16.npz
+
+Under `python -m torch.distributed.run --nproc_per_node R -m
+stitchax_torch.train ...` it trains data-parallel, as train.py does over
+its devices: every rank reads the same global batches and swap draws, takes
+its block of `batch_size / R` pairs (`parallel.shard_batch`; the batch must
+split evenly) on cuda:<LOCAL_RANK> (or `--device`), and the step
+all-reduces the gradient before the clip and AdamW
+(`parallel.make_parallel_train_step`), so that R ranks take the global
+batch's step. Only rank 0 writes the metrics, checkpoints, dashboards and
+the final npz. `--backend` picks the process group's (nccl on the card,
+gloo on the CPU by default; gloo runs two ranks on one card, which nccl
+refuses). Without WORLD_SIZE in the environment it runs one process.
 
 Trains the UDIS2 homography net and FlowFormer++ together, unsupervised,
 on `{data_dir}/training/input{1,2}/*.jpg` with `configs.<model_config_name>`
 (configs/last_config.py: 512^2, batch 1, AdamW + one-cycle, clip 1,
 sequence gamma 0.8), in fp32 with TF32 off. train.py's flags, plus
-`--device` (default cuda:0; `cpu` for tests). Writes
+`--device` (default cuda:0, or cuda:<LOCAL_RANK> for a rank; `cpu` for
+tests) and `--backend`. Writes
 `{ckpt_dir}/train_metrics.jsonl`, a resumable `step_<8 digits>.pt` every
 `save_every` steps, at the end and on a first SIGTERM / SIGINT (the step in
 flight finishes first; a second signal stops at once), a dashboard figure
@@ -61,9 +74,15 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--remat", action="store_true", default=False,
                    help="recompute the backbones' forwards in the backward "
                         "pass (less device memory)")
-    p.add_argument("--device", type=str, default="cuda:0",
-                   help="torch device ('cpu' for tests)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default cuda:0, a rank's "
+                        "cuda:<LOCAL_RANK>; 'cpu' for tests)")
+    p.add_argument("--backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="process group backend of a data-parallel run "
+                        "(default nccl on the card, gloo on the CPU)")
     return p.parse_args(argv)
+
 
 
 def build_config(args):
@@ -90,20 +109,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..data.udis import fetch_dataloader
     from ..models.flowformer import FlowFormer, FlowFormerConfig
     from ..models.udis2 import UDIS2HomographyNet
-    from ..utils.logger import Logger
-    from ..utils.precision import fp32_exact
+    from ..parallel import cli_world, make_parallel_train_step, shard_batch
+    from ..utils.logger import Logger, NullLogger
     from . import (LossConfig, OptimConfig, create_train_state,
                    make_train_step, restore_checkpoint, save_checkpoint,
                    stitchax_tree)
 
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"--device {args.device}: no CUDA device "
-                               "(pass --device cpu to train on the CPU)")
-        torch.cuda.set_device(device)
-        fp32_exact()
+    world = cli_world(args.device, args.backend)
+    device = world.device
     cfg = build_config(args)
+    if cfg.batch_size % world.size:
+        raise ValueError(f"batch {cfg.batch_size} does not split over "
+                         f"{world.size} ranks")
     trainer = cfg.trainer
     num_steps = args.num_steps or trainer.num_steps
     S = cfg.image_size[0]
@@ -153,13 +170,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         models["homo"], models["flow"], tx, align_cfg, loss_cfg,
         use_fb_consistency_mask=cfg.get("use_fb_consistency_mask", True),
         remat=args.remat)
+    if world.backend is not None:
+        step_fn = make_parallel_train_step(step_fn, world)
 
-    os.makedirs(args.ckpt_dir, exist_ok=True)
-    logger = Logger(log_dir=args.ckpt_dir, name="train",
-                    sum_freq=args.log_every)
+    if world.is_main:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+        logger = Logger(log_dir=args.ckpt_dir, name="train",
+                        sum_freq=args.log_every)
+    else:
+        logger = NullLogger()
     loader = fetch_dataloader(cfg, phase="training")
+    where = (f"{world.size} ranks ({world.backend}; rank 0 on {device})"
+             if world.backend else f"1 device ({device})")
     logger.info(f"training {num_steps} steps, batch {cfg.batch_size}, "
-                f"{len(loader.ds)} pairs, 1 device ({device})")
+                f"{len(loader.ds)} pairs, {where}")
 
     stop_requested = []
 
@@ -180,13 +204,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         loader.skip(step)
         if random_swap:
             rng.random(step)
-    while step < num_steps and not stop_requested:
+    # a signal to any rank stops every rank after the same step
+    stop = lambda: world.any(bool(stop_requested))
+    while step < num_steps and not stop():
         for batch in loader:
-            if step >= num_steps or stop_requested:
+            if step >= num_steps or stop():
                 break
             img1, img2 = batch["image1"], batch["image2"]
             if random_swap and rng.random() < 0.5:
                 img1, img2 = img2, img1   # the reference's random_img12
+            if world.backend is not None:     # this rank's block
+                img1, img2 = shard_batch((img1, img2), world)
             # uint8 upload (the decoded pixels are whole gray levels),
             # float32 on the device
             img1, img2 = (torch.from_numpy(np.asarray(x, np.uint8)).to(
@@ -196,6 +224,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             names = sorted(metrics)
             vec = torch.stack([metrics[k] for k in names]).cpu().numpy()
             logger.push(dict(zip(names, vec)), step=step)
+            stopping = stop()
+            if not world.is_main:
+                continue
             if args.panel_every and (step % args.panel_every == 0
                                      or step == num_steps):
                 from ..utils.logger import save_train_dashboard
@@ -207,7 +238,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                      pred[0].cpu().numpy())
                 logger.info(f"saved dashboard {path}")
             if (step % args.save_every == 0 or step == num_steps
-                    or stop_requested):
+                    or stopping):
                 path = os.path.abspath(os.path.join(
                     args.ckpt_dir, f"step_{step:08d}.pt"))
                 save_checkpoint(path, state)
@@ -216,12 +247,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     if stop_requested:
         logger.info(f"stopped early at step {step} on signal "
                     f"{stop_requested[0]}")
-    # {flow, homo} as float32 leaves under stitchax's key strings
-    final = os.path.abspath(os.path.join(args.ckpt_dir, "final_ckpt.npz"))
-    convert.save_params_npz(final, stitchax_tree(state.params), bf16=False)
-    logger.info(f"exported eval-format checkpoint {final}")
+    if world.is_main:
+        # {flow, homo} as float32 leaves under stitchax's key strings
+        final = os.path.abspath(os.path.join(args.ckpt_dir,
+                                             "final_ckpt.npz"))
+        convert.save_params_npz(final, stitchax_tree(state.params),
+                                bf16=False)
+        logger.info(f"exported eval-format checkpoint {final}")
     logger.info("training complete")
     logger.close()
+    world.barrier()
     return 0
 
 

@@ -15,6 +15,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..ops.flow import flow_warp_b
+from ..parallel.mesh import all_sum
 
 
 @dataclass(frozen=True)
@@ -62,20 +63,45 @@ def smoothness_loss(flow: torch.Tensor) -> torch.Tensor:
     return dx + dy
 
 
+def _global_photometric(sums: torch.Tensor, counts: torch.Tensor,
+                        channels: int, world) -> List[torch.Tensor]:
+    """Each prediction's photometric term over the global batch, from this
+    rank's masked error sums and mask counts (n,) and every rank's:
+    value S / (max(C, 1) ch) with S, C summed over the ranks (one
+    collective), and a gradient that, averaged over the ranks, is the
+    global term's: R (S_r' - (S / C) C_r') / (C ch) on rank r, C_r' where
+    the clamp lets it through. Averaging each rank's own S_r / C_r would
+    weight the ranks' pairs by 1 / C_r instead."""
+    tot = all_sum(torch.stack([sums, counts]).detach(), world)
+    S, C = tot[0], tot[1]
+    Cc = torch.clamp(C, min=1.0)
+    value = S / (Cc * channels)
+    ds = sums - sums.detach()
+    dc = (counts - counts.detach()) * (C >= 1.0).to(counts.dtype)
+    terms = value + world.size * (ds - (S / Cc) * dc) / (Cc * channels)
+    return list(terms.unbind(0))
+
+
 def sequence_alignment_loss(img1: torch.Tensor, output_H: torch.Tensor,
                             flow_predictions: List[torch.Tensor],
                             occlusion_mask: Optional[torch.Tensor],
-                            cfg: LossConfig) -> Dict[str, torch.Tensor]:
+                            cfg: LossConfig, world=None
+                            ) -> Dict[str, torch.Tensor]:
     """img1 (B, H, W, 3); output_H (B, H, W, 6), the H-warped img2 and its
     warped ones; flow_predictions, the decoder's per-iteration flows. A
     prediction's pixels with |flow| >= max_flow, outside the coverage or
     occluded do not count. Returns total, photometric (the last
-    prediction's), rigid and border."""
+    prediction's), rigid and border.
+
+    With a `world` of ranks (parallel.World), the batch is this rank's
+    block of the global batch: the photometric terms normalize by the mask
+    counts of the global batch (`_global_photometric`), and the rigid and
+    border means are this block's, which averaging over equal blocks makes
+    global."""
     n = len(flow_predictions)
     total = torch.zeros((), device=img1.device, dtype=img1.dtype)
-    photo = total
-    for i, flow in enumerate(flow_predictions):
-        weight = cfg.gamma ** (n - 1 - i)
+    photos, sums, counts = [], [], []
+    for flow in flow_predictions:
         mag = torch.sqrt((flow * flow).sum(-1, keepdim=True))
         valid_flow = (mag < cfg.max_flow).to(img1.dtype)
         warped = flow_warp_b(output_H, flow)
@@ -83,8 +109,18 @@ def sequence_alignment_loss(img1: torch.Tensor, output_H: torch.Tensor,
         m = wmask * valid_flow
         if occlusion_mask is not None:
             m = m * occlusion_mask
-        photo = photometric_l1(img1, w2, m, cfg.charbonnier_eps)
-        total = total + weight * photo
+        if world is None or world.backend is None:
+            photos.append(photometric_l1(img1, w2, m, cfg.charbonnier_eps))
+        else:
+            diff = img1 - w2
+            err = torch.sqrt(diff * diff + cfg.charbonnier_eps ** 2)
+            sums.append((err * m).sum())
+            counts.append(m.sum())
+    if sums:
+        photos = _global_photometric(torch.stack(sums), torch.stack(counts),
+                                     img1.shape[-1], world)
+    for i, photo in enumerate(photos):
+        total = total + cfg.gamma ** (n - 1 - i) * photo
     final_flow = flow_predictions[-1]
     rigid = rigid_motion_loss(final_flow)
     border = border_zero_flow_loss(final_flow, cfg.border_px)

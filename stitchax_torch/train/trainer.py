@@ -132,9 +132,11 @@ def make_train_step(homo: nn.Module, flow: nn.Module, tx: Optimizer,
         flow_fn = lambda a, b: checkpoint(flow, a, b, use_reentrant=False)
 
     def loss_and_grads(state: TrainState, img1: torch.Tensor,
-                       img2: torch.Tensor, timings: Optional[dict] = None):
+                       img2: torch.Tensor, timings: Optional[dict] = None,
+                       world=None):
         """(losses, {name: gradient}) at the state's tensors; their .grad
-        is left None."""
+        is left None. With a `world`, img1 / img2 are this rank's block of
+        the global batch (`parallel.make_parallel_train_step`)."""
         t0 = _sync_mark(timings, None, time.perf_counter(),
                         img1.device)
         fwd = align_train_forward(homo_fn, flow_fn, img1, img2, align_cfg)
@@ -145,7 +147,7 @@ def make_train_step(homo: nn.Module, flow: nn.Module, tx: Optimizer,
             t0 = _sync_mark(timings, "backward_flow_ms", t0, img1.device)
         losses = sequence_alignment_loss(img1, fwd["output_H"],
                                          fwd["flow_predictions"], occ,
-                                         loss_cfg)
+                                         loss_cfg, world)
         for p in state.params.values():
             p.grad = None
         losses["total"].backward()
@@ -156,20 +158,27 @@ def make_train_step(homo: nn.Module, flow: nn.Module, tx: Optimizer,
         _sync_mark(timings, "backward_ms", t0, img1.device)
         return {k: v.detach() for k, v in losses.items()}, grads
 
-    def train_step(state: TrainState, img1: torch.Tensor, img2: torch.Tensor,
-                   timings: Optional[dict] = None):
-        metrics, grads = loss_and_grads(state, img1, img2, timings)
+    def apply_gradients(state: TrainState, metrics: dict, grads: dict,
+                        timings: Optional[dict] = None):
+        """Clip + AdamW with `grads`; metrics gain grad_norm, the raw
+        gradients' global norm."""
         t0 = time.perf_counter()
         with torch.no_grad():
             grad_norm = global_norm(list(grads.values()))
         updates, opt_state = tx.update(grads, state.opt_state, state.params)
         apply_updates(state.params, updates)
-        _sync_mark(timings, "update_ms", t0, img1.device)
+        _sync_mark(timings, "update_ms", t0, grad_norm.device)
         metrics["grad_norm"] = grad_norm
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state), metrics
 
+    def train_step(state: TrainState, img1: torch.Tensor, img2: torch.Tensor,
+                   timings: Optional[dict] = None):
+        metrics, grads = loss_and_grads(state, img1, img2, timings)
+        return apply_gradients(state, metrics, grads, timings)
+
     train_step.loss_and_grads = loss_and_grads
+    train_step.apply_gradients = apply_gradients
     return train_step
 
 

@@ -100,8 +100,11 @@ def make_transref_train_step(model: nn.Module, vgg: Callable, tx: Adam,
     backward and Adam (synchronizing between them)."""
 
     def loss_and_grads(state: TrainState, gt, ref, mask,
-                       timings: Optional[dict] = None):
-        """(losses, {name: gradient}) at the state's tensors."""
+                       timings: Optional[dict] = None, world=None):
+        """(losses, {name: gradient}) at the state's tensors. The losses
+        are means over the batch, so a rank's block needs nothing of the
+        other ranks' (`world` is not read): averaging the blocks'
+        gradients gives the global batch's."""
         t0 = _sync_mark(timings, None, time.perf_counter(), gt.device)
         out = model(prepare_inputs(gt, mask), mask, ref)
         t0 = _sync_mark(timings, "forward_ms", t0, gt.device)
@@ -118,17 +121,22 @@ def make_transref_train_step(model: nn.Module, vgg: Callable, tx: Adam,
         _sync_mark(timings, "backward_ms", t0, gt.device)
         return {k: v.detach() for k, v in losses.items()}, grads
 
-    def train_step(state: TrainState, gt, ref, mask,
-                   timings: Optional[dict] = None):
-        metrics, grads = loss_and_grads(state, gt, ref, mask, timings)
+    def apply_gradients(state: TrainState, metrics: dict, grads: dict,
+                        timings: Optional[dict] = None):
         t0 = time.perf_counter()
         updates, opt_state = tx.update(grads, state.opt_state, state.params)
         apply_updates(state.params, updates)
-        _sync_mark(timings, "adam_ms", t0, gt.device)
+        _sync_mark(timings, "adam_ms", t0, metrics["total"].device)
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state), metrics
 
+    def train_step(state: TrainState, gt, ref, mask,
+                   timings: Optional[dict] = None):
+        metrics, grads = loss_and_grads(state, gt, ref, mask, timings)
+        return apply_gradients(state, metrics, grads, timings)
+
     train_step.loss_and_grads = loss_and_grads
+    train_step.apply_gradients = apply_gradients
     return train_step
 
 

@@ -1,6 +1,15 @@
-"""The TransRef trainer's CLI: train_transref.py on one card.
+"""The TransRef trainer's CLI: train_transref.py.
 
     python -m stitchax_torch.train_transref --data_dir UDIS-D/
+
+Under `python -m torch.distributed.run --nproc_per_node R` it trains
+data-parallel, as train_transref.py does over its devices: every rank reads
+the same global batch and draws the same holes, takes its block of
+`batch_size / R` pairs, and averages the gradient over the ranks before
+Adam (`parallel.make_parallel_train_step`; the losses are batch means, so
+equal blocks give the global batch's gradient). Only rank 0 writes files.
+Each rank runs on cuda:<LOCAL_RANK> (or `--device`); `--backend` as
+`python -m stitchax_torch.train`'s.
 
 Trains TransRef (reference-guided inpainting) on
 `{data_dir}/training/input{1,2}/*.jpg`: input1 is the ground truth, input2
@@ -8,7 +17,7 @@ the reference (`--ref_from self`: the ground truth itself), holes are
 random rectangles, the objective 1 L1 + 0.04 VGG-perceptual + 250
 style-Gram, Adam at `--lr`; 512^2, batch 4 by default, in fp32 with TF32
 off. train_transref.py's flags, plus `--device` (default cuda:0; `cpu` for
-tests). Writes `{ckpt_dir}/transref_metrics.jsonl`, a resumable
+tests) and `--backend`. Writes `{ckpt_dir}/transref_metrics.jsonl`, a resumable
 `step_<8 digits>.pt` every `save_every` steps, at the end and on a first
 SIGTERM / SIGINT (the step in flight finishes first; a second signal stops
 at once), and at the end `final_transref.msgpack`: the weights as a flax
@@ -55,8 +64,13 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "perceptual/style loss; random VGG if absent")
     p.add_argument("--ref_from", choices=["pair", "self"], default="pair")
     p.add_argument("--seed", type=int, default=1234)
-    p.add_argument("--device", type=str, default="cuda:0",
-                   help="torch device ('cpu' for tests)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default cuda:0, a rank's "
+                        "cuda:<LOCAL_RANK>; 'cpu' for tests)")
+    p.add_argument("--backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="process group backend of a data-parallel run "
+                        "(default nccl on the card, gloo on the CPU)")
     return p.parse_args(argv)
 
 
@@ -73,16 +87,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                                           make_transref_train_step,
                                           rect_masks, restore_checkpoint,
                                           save_checkpoint)
-    from ..utils.logger import Logger
-    from ..utils.precision import fp32_exact
+    from ..parallel import cli_world, make_parallel_train_step, shard_batch
+    from ..utils.logger import Logger, NullLogger
 
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"--device {args.device}: no CUDA device "
-                               "(pass --device cpu to train on the CPU)")
-        torch.cuda.set_device(device)
-        fp32_exact()
+    world = cli_world(args.device, args.backend)
+    device = world.device
+    if args.batch_size % world.size:
+        raise ValueError(f"batch {args.batch_size} does not split over "
+                         f"{world.size} ranks")
     S = args.image_size
     torch.manual_seed(args.seed)
     model = TransRefBase()
@@ -109,6 +121,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                              f"{data['batch_size']}, not {args.batch_size}")
         print(f"resumed from {args.resume} at step {state.step}")
     step_fn = make_transref_train_step(model, vgg, tx, TransRefLossConfig())
+    if world.backend is not None:
+        step_fn = make_parallel_train_step(step_fn, world)
 
     ds = UDISDataset(args.data_dir, phase="training", is_test=True,
                      size=(S, S))
@@ -117,12 +131,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     if len(loader) == 0:
         raise ValueError(f"{args.data_dir}: {len(ds)} training pairs make "
                          f"no batch of {args.batch_size}")
-    os.makedirs(args.ckpt_dir, exist_ok=True)
-    logger = Logger(log_dir=args.ckpt_dir, name="transref",
-                    sum_freq=args.log_every)
+    if world.is_main:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+        logger = Logger(log_dir=args.ckpt_dir, name="transref",
+                        sum_freq=args.log_every)
+    else:
+        logger = NullLogger()
+    where = (f"{world.size} ranks ({world.backend}; rank 0 on {device})"
+             if world.backend else f"1 device ({device})")
     logger.info(f"TransRef training: {args.num_steps} steps, batch "
-                f"{args.batch_size} at {S}², {len(ds)} pairs, 1 device "
-                f"({device})")
+                f"{args.batch_size} at {S}², {len(ds)} pairs, {where}")
 
     stop_requested = []
 
@@ -144,22 +162,31 @@ def main(argv: Optional[List[str]] = None) -> int:
             draw_rect_boxes(boxes, args.batch_size, S)
     to_unit = lambda x: torch.from_numpy(np.asarray(x, np.uint8)).to(
         device).float() / 127.5 - 1.0
-    while step < args.num_steps and not stop_requested:
+    # a signal to any rank stops every rank after the same step
+    stop = lambda: world.any(bool(stop_requested))
+    while step < args.num_steps and not stop():
         for batch in loader:
-            if step >= args.num_steps or stop_requested:
+            if step >= args.num_steps or stop():
                 break
-            gt = to_unit(batch["image1"])
-            ref = gt if args.ref_from == "self" else to_unit(batch["image2"])
-            mask = rect_masks(*(t.to(device) for t in draw_rect_boxes(
-                boxes, gt.shape[0], S)), S)
+            # every rank draws the global batch's holes, then takes its
+            # block of pairs and holes
+            drawn = draw_rect_boxes(boxes, len(batch["image1"]), S)
+            im1, im2 = batch["image1"], batch["image2"]
+            if world.backend is not None:
+                im1, im2, drawn = shard_batch((im1, im2, drawn), world)
+            gt = to_unit(im1)
+            ref = gt if args.ref_from == "self" else to_unit(im2)
+            mask = rect_masks(*(t.to(device) for t in drawn), S)
             state, metrics = step_fn(state, gt, ref, mask)
             step += 1
             data["batches"] += 1
             names = sorted(metrics)
             vec = torch.stack([metrics[k] for k in names]).cpu().numpy()
             logger.push(dict(zip(names, vec)), step=step)
-            if (step % args.save_every == 0 or step == args.num_steps
-                    or stop_requested):
+            stopping = stop()
+            if world.is_main and (
+                    step % args.save_every == 0 or step == args.num_steps
+                    or stopping):
                 path = os.path.abspath(os.path.join(
                     args.ckpt_dir, f"step_{step:08d}.pt"))
                 save_checkpoint(path, state, model, data)
@@ -168,12 +195,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     if stop_requested:
         logger.info(f"stopped early at step {step} on signal "
                     f"{stop_requested[0]}")
-    final = os.path.abspath(os.path.join(args.ckpt_dir,
-                                         "final_transref.msgpack"))
-    export_msgpack(final, model)
-    logger.info(f"exported flax msgpack weights {final}")
+    if world.is_main:
+        final = os.path.abspath(os.path.join(args.ckpt_dir,
+                                             "final_transref.msgpack"))
+        export_msgpack(final, model)
+        logger.info(f"exported flax msgpack weights {final}")
     logger.info("training complete")
     logger.close()
+    world.barrier()
     return 0
 
 

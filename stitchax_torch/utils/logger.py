@@ -73,6 +73,20 @@ class Logger:
         self._jsonl.close()
 
 
+class NullLogger:
+    """A data-parallel trainer's logger on the ranks other than 0, which
+    write no files and print nothing."""
+
+    def info(self, msg: str):
+        pass
+
+    def push(self, metrics: Dict[str, Any], step: Optional[int] = None):
+        pass
+
+    def close(self):
+        pass
+
+
 def save_train_dashboard(path: str, image1, image2, flow_pred,
                          valid=None, flow_gt=None):
     """stitchax's training figure (its logger.py:69-128): a row of inputs
