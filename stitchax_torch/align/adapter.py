@@ -23,6 +23,7 @@ from ..ops.homography import dlt_solve, scale_matrix
 from ..ops.morphology import preprocess_occlusion_mask
 from ..ops.occlusion import compute_occlusion_b
 from ..ops.sampling import homography_warp_b, resize_image_b
+from ..utils.tracing import count_sync, span
 
 
 @dataclass(frozen=True)
@@ -36,6 +37,7 @@ class AlignConfig:
 
 
 def _corners(h: float, w: float, like: torch.Tensor) -> torch.Tensor:
+    count_sync(like.device)         # a blocking host-to-device copy
     return torch.tensor([[0.0, 0.0], [w, 0.0], [0.0, h], [w, h]],
                         device=like.device, dtype=like.dtype)
 
@@ -65,6 +67,7 @@ def canvas_box(H: torch.Tensor, img_h: int, img_w: int) -> torch.Tensor:
 def _normalized(H: torch.Tensor, h: float, w: float) -> torch.Tensor:
     """M^-1 @ H @ M for a square (h, w) frame on both sides."""
     M = scale_matrix(h, w, device=H.device, dtype=H.dtype)
+    count_sync(H.device)            # linalg.inv checks its result on the host
     return torch.linalg.inv(M) @ H @ M
 
 
@@ -80,10 +83,12 @@ def train_eval_forward(homo_fn: Callable, flow_fn: Callable,
     homo_fn(a, b) -> (B, 8) offsets on [-1, 1] inputs; flow_fn(a, b) ->
     ([flows], lr) on [0, 255] inputs."""
     B, img_h, img_w, _ = input1.shape
-    offsets = homo_fn(input1 / 127.5 - 1.0, input2 / 127.5 - 1.0)
-    H = predict_homography_matrix(offsets, img_h, img_w, scale_div=8.0)
-    H_mat = _normalized(H, img_h / 8.0, img_w / 8.0)
-    H_inv_mat = _normalized(torch.linalg.inv(H), img_h / 8.0, img_w / 8.0)
+    with span("align.homography"):
+        offsets = homo_fn(input1 / 127.5 - 1.0, input2 / 127.5 - 1.0)
+        H = predict_homography_matrix(offsets, img_h, img_w, scale_div=8.0)
+        H_mat = _normalized(H, img_h / 8.0, img_w / 8.0)
+        count_sync(H.device)        # linalg.inv checks its result on the host
+        H_inv_mat = _normalized(torch.linalg.inv(H), img_h / 8.0, img_w / 8.0)
 
     ones3 = torch.ones_like(input2)
     output_H = homography_warp_b(torch.cat([input2, ones3], -1), H_mat,
@@ -92,7 +97,8 @@ def train_eval_forward(homo_fn: Callable, flow_fn: Callable,
                                      H_inv_mat, img_h, img_w)
 
     warp2 = output_H[..., 0:3]
-    flow_predictions, _ = flow_fn(input1, warp2)
+    with span("align.flow"):
+        flow_predictions, _ = flow_fn(input1, warp2)
     final_flow = flow_predictions[-1]
 
     final_warp_output = flow_warp_b(output_H, final_flow)
@@ -101,7 +107,8 @@ def train_eval_forward(homo_fn: Callable, flow_fn: Callable,
     out = dict(output_H=output_H, output_H_inv=output_H_inv,
                flow_predictions=flow_predictions, H=H)
     if cfg.use_fb_consistency_mask:
-        back_predictions, _ = flow_fn(warp2, input1)
+        with span("align.flow"):
+            back_predictions, _ = flow_fn(warp2, input1)
         occ = compute_occlusion_b(final_flow, back_predictions[-1],
                                   cfg.occlusion_estimation,
                                   occlusion_are_zeros=True,
@@ -132,6 +139,7 @@ def stitch_model_step(homo_fn: Callable, flow_fn: Callable,
     motion_512 = offsets.reshape(-1, 4, 2)
     H_512 = predict_homography_matrix(offsets, S, S)
     M = scale_matrix(S, S, device=input1.device, dtype=input1.dtype)
+    count_sync(M.device)            # linalg.inv checks its result on the host
     H_mat = torch.linalg.inv(M) @ H_512 @ M
 
     output_H = homography_warp_b(torch.cat([in2, torch.ones_like(in2)], -1),
@@ -174,6 +182,7 @@ def stitch_render(input1: torch.Tensor, input2: torch.Tensor, H: torch.Tensor,
     B, img_h, img_w, _ = input1.shape
     dev, dtype = input1.device, input1.dtype
     M = scale_matrix(out_h, out_w, device=dev, dtype=dtype)
+    count_sync(dev)                 # linalg.inv checks its result on the host
     N_inv = torch.linalg.inv(scale_matrix(img_h, img_w, device=dev,
                                           dtype=dtype))
     I_ = torch.eye(3, device=dev, dtype=dtype).repeat(B, 1, 1)

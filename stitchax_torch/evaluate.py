@@ -134,6 +134,7 @@ def validate_with_model(cfg, loader, models, align_cfg, eval_step=None,
 
     from .metrics import psnr_batch, ssim_batch
     from .parallel import make_parallel_eval_step, pad_to_world
+    from .utils.tracing import count_sync, span
 
     if eval_step is None:
         eval_step = make_eval_step(models, align_cfg)
@@ -144,17 +145,26 @@ def validate_with_model(cfg, loader, models, align_cfg, eval_step=None,
     psnr_list, ssim_list = [], []
     seen = 0
     for batch in loader:
-        img1 = torch.from_numpy(batch["image1"]).to(models.device)
-        img2 = torch.from_numpy(batch["image2"]).to(models.device)
-        n = img1.shape[0]
-        if parallel:
-            (img1, img2), n = pad_to_world([img1, img2], world)
-        warped, valid = eval_step(img1, img2)
-        if not main:
-            continue
-        a, b = masked_pairs(batch["image1"], warped[:n].cpu().numpy(),
-                            valid[:n].cpu().numpy())
-        p, s = psnr_batch(a, b, 255.0), ssim_batch(a, b, 7, 255.0)
+        with span("eval.batch"):
+            with span("eval.upload"):
+                # two blocking host-to-device copies
+                count_sync(models.device, 2)
+                img1 = torch.from_numpy(batch["image1"]).to(models.device)
+                img2 = torch.from_numpy(batch["image2"]).to(models.device)
+                n = img1.shape[0]
+                if parallel:
+                    (img1, img2), n = pad_to_world([img1, img2], world)
+            with span("eval.align"):
+                warped, valid = eval_step(img1, img2)
+            if not main:
+                continue
+            with span("eval.download"):
+                count_sync(warped.device, 2)  # two device-to-host copies
+                warped = warped[:n].cpu().numpy()
+                valid = valid[:n].cpu().numpy()
+            with span("eval.score"):
+                a, b = masked_pairs(batch["image1"], warped, valid)
+                p, s = psnr_batch(a, b, 255.0), ssim_batch(a, b, 7, 255.0)
         psnr_list += list(p)
         ssim_list += list(s)
         if per_pair is not None:

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ..ops.flow import convex_upsample_flow_b
 from ..ops.grid import coords_grid
 from ..ops.kernels.cost_lookup import cost_lookup
+from ..utils.tracing import span
 from .layers import (Conv, TokenFfn, linear_position_embedding_sine,
                      multi_head_attention, pad_to_multiple)
 from .na_layer import NeighborhoodSelfAttentionLayer
@@ -335,10 +336,11 @@ class BasicMotionEncoder(nn.Module):
         self.conv = Conv(192 + 64, 126, 3, padding=1)
 
     def forward(self, flow, corr):
-        cor = F.relu(self.convc2(F.relu(self.convc1(corr))))
-        flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
-        out = F.relu(self.conv(torch.cat([cor, flo], -1)))
-        return torch.cat([out, flow], -1)
+        with span("flow.motion_encoder"):
+            cor = F.relu(self.convc2(F.relu(self.convc1(corr))))
+            flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
+            out = F.relu(self.conv(torch.cat([cor, flo], -1)))
+            return torch.cat([out, flow], -1)
 
 
 class SepConvGRU(nn.Module):

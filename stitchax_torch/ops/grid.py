@@ -8,6 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tracing import count_sync
+
 
 def xla_linspace(start: float, stop: float, n: int) -> np.ndarray:
     """float32 values of `jnp.linspace(start, stop, n)` as stitchax's
@@ -27,6 +29,7 @@ def xla_linspace(start: float, stop: float, n: int) -> np.ndarray:
 
 
 def _linspace(start: float, stop: float, n: int, device, dtype):
+    count_sync(device)              # a blocking host-to-device copy
     return torch.from_numpy(xla_linspace(start, stop, n)).to(device, dtype)
 
 
@@ -70,4 +73,5 @@ def apply_homography_to_points(H: torch.Tensor, pts: torch.Tensor) -> torch.Tens
 
 def h2mesh(H: torch.Tensor, rigid_mesh: torch.Tensor) -> torch.Tensor:
     """Map a rigid mesh through H^-1 (the reference's H2Mesh convention)."""
+    count_sync(H.device)            # linalg.inv checks its result on the host
     return apply_homography_to_points(torch.linalg.inv(H), rigid_mesh)

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tracing import count_sync
+
 
 # sqrt(2) and its reciprocal as fp32 constants (jnp.sqrt(2.0) and XLA's
 # folded 1 / sqrt(2))
@@ -55,6 +57,7 @@ def dlt_solve(src_p: torch.Tensor, dst_p: torch.Tensor,
     row_y = torch.stack([zeros, zeros, zeros, x, y, ones, -x * yp, -y * yp], -1)
     A = torch.stack([row_x, row_y], 2).reshape(B, 8, 8)
     b = torch.stack([xp, yp], 2).reshape(B, 8, 1)
+    count_sync(A.device)            # linalg.solve checks it on the host
     h8 = torch.linalg.solve(A, b).reshape(B, 8)
     return torch.cat([h8, torch.ones_like(h8[:, :1])], 1).reshape(B, 3, 3)
 
@@ -62,5 +65,6 @@ def dlt_solve(src_p: torch.Tensor, dst_p: torch.Tensor,
 def scale_matrix(h: float, w: float, device=None,
                  dtype=torch.float32) -> torch.Tensor:
     """M mapping normalized [-1, 1] coords to pixels of an (h, w) image."""
+    count_sync(device)              # a blocking host-to-device copy
     return torch.tensor([[w / 2.0, 0.0, w / 2.0], [0.0, h / 2.0, h / 2.0],
                          [0.0, 0.0, 1.0]], device=device, dtype=dtype)

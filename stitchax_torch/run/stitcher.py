@@ -52,6 +52,7 @@ from ..models.sd_pipeline import SDModels, load_sd_models
 from ..ops.sampling import resize_image_b
 from ..tps.pipeline import TPSConfig, tps_break_warp
 from ..utils.precision import call_in
+from ..utils.tracing import count_sync, span
 
 DEFAULT_CONFIG = "fast_cv_g8"
 # the learned composition runs on canvases with a shorter side of at least
@@ -259,23 +260,16 @@ class Stitcher:
             raise ValueError("Stitcher needs models or both homo_fn/flow_fn")
         self._homo_fn, self._flow_fn = homo_fn, flow_fn
 
-    def _sync(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
     @torch.no_grad()
     def stitch_tensors(self, img1: torch.Tensor, img2: torch.Tensor,
                        timings: Optional[Dict[str, float]] = None
                        ) -> Dict[str, Any]:
         """(1, H, W, 3) fp32 tensors on the stitcher's device -> canvas
         tensors at the bucketed canvas size plus the true extent."""
-        a = self.align_cfg
-        t0 = self._sync() if timings is not None else 0.0
-        out = stitch_model_step(self._homo_fn, self._flow_fn, img1, img2, a,
-                                flow_pair_fn=self._flow_pair_fn)
-        if timings is not None:
-            timings["align_ms"] = (self._sync() - t0) * 1e3
+        with span("stitch.align", timings, "align_ms", self.device):
+            out = stitch_model_step(self._homo_fn, self._flow_fn, img1, img2,
+                                    self.align_cfg,
+                                    flow_pair_fn=self._flow_pair_fn)
         return self.stitch_aligned(img1, img2, out, timings)
 
     @torch.no_grad()
@@ -288,66 +282,62 @@ class Stitcher:
         canvas_box and, with the consistency mask, origin_occlusion_mask;
         each batched, B = 1)."""
         a = self.align_cfg
-        t1 = self._sync() if timings is not None else 0.0
-        box = out["canvas_box"][0].cpu().numpy()
-        width_min, height_min = float(box[0]), float(box[1])
-        true_w = int(float(box[2]) - width_min)
-        true_h = int(float(box[3]) - height_min)
-        out_w = bucket_canvas(true_w, a.canvas_bucket, a.max_canvas)
-        out_h = bucket_canvas(true_h, a.canvas_bucket, a.max_canvas)
-        wm, hm = out["canvas_box"][:, 0], out["canvas_box"][:, 1]
-        r = stitch_render(img1, img2, out["H"], out["flow"],
-                          out.get("origin_occlusion_mask"), wm, hm, out_h,
-                          out_w, a)
-        if timings is not None:
-            t2 = self._sync()
-            timings["render_ms"] = (t2 - t1) * 1e3
-
-        occ = r["occlusion_mask"]
-        occ0 = (occ[0] if occ is not None
-                else torch.ones_like(r["mask1"][0]))
-        valid_flow = None
-        if self.tps_cfg.use_valid_on_flow and "origin_occlusion_mask" in out:
-            valid_flow = out["origin_occlusion_mask"][0]
-        output1, mask1 = r["output1"][0], r["mask1"][0]
-        final_warp = r["final_warp"][0]
-        t = tps_break_warp(output1, mask1, r["H_warp"][0],
-                           r["H_warp_mask"][0], final_warp, out["flow"][0],
-                           wm[0], hm[0], self.tps_cfg, occlusion_mask=occ0,
-                           valid_flow_mask=valid_flow)
-        inpaint = self.inpainter.inpaint
-        if timings is not None:
+        if timings is not None:     # also where nothing is inpainted
             timings["inpaint_ms"] = 0.0
+        dev = self.device
+        with span("stitch.render", timings, "render_ms", dev):
+            count_sync(dev)             # canvas_box's download
+            box = out["canvas_box"][0].cpu().numpy()
+            width_min, height_min = float(box[0]), float(box[1])
+            true_w = int(float(box[2]) - width_min)
+            true_h = int(float(box[3]) - height_min)
+            out_w = bucket_canvas(true_w, a.canvas_bucket, a.max_canvas)
+            out_h = bucket_canvas(true_h, a.canvas_bucket, a.max_canvas)
+            wm, hm = out["canvas_box"][:, 0], out["canvas_box"][:, 1]
+            r = stitch_render(img1, img2, out["H"], out["flow"],
+                              out.get("origin_occlusion_mask"), wm, hm,
+                              out_h, out_w, a)
 
-            def inpaint(*args):
-                t_in = self._sync()
-                res = self.inpainter.inpaint(*args)
-                timings["inpaint_ms"] += (self._sync() - t_in) * 1e3
-                return res
-        mixed = self.mix_fn(t["output2"], t["mask2"], output1, mask1,
-                            final_warp, occ0, inpaint=inpaint,
-                            inpainter_name=self.inpainter_name)
-        mask2 = mixed.tps_final_warp_mask
-        output2 = mixed.tps_final_warp * mask2
-        blend = ((output1 * mask1 + output2 * mask2)
-                 / torch.clamp(mask1 + mask2, min=1e-6)).clamp(0, 255)
-        res = dict(H=out["H"][0], flow=out["flow"][0],
-                   canvas_box=out["canvas_box"][0], H_warp=r["H_warp"][0],
-                   final_warp=final_warp, output1=output1, mask1=mask1,
-                   output2=output2, mask2=mask2, new_blend_image=blend,
-                   occlusion_mask=occ0,
-                   inpaint_area_mask=mixed.inpaint_area_mask,
-                   control_src=t["control_src"],
-                   control_dst=t["control_dst"],
-                   control_valid=t["control_valid"],
-                   canvas=(out_h, out_w), true_hw=(true_h, true_w))
-        if timings is not None:
-            t3 = self._sync()
-            timings["tps_mix_ms"] = (t3 - t2) * 1e3
+        def inpaint(*args):
+            with span("stitch.inpaint", timings, "inpaint_ms", dev):
+                return self.inpainter.inpaint(*args)
+
+        with span("stitch.tps_mix", timings, "tps_mix_ms", dev):
+            occ = r["occlusion_mask"]
+            occ0 = (occ[0] if occ is not None
+                    else torch.ones_like(r["mask1"][0]))
+            valid_flow = None
+            if (self.tps_cfg.use_valid_on_flow
+                    and "origin_occlusion_mask" in out):
+                valid_flow = out["origin_occlusion_mask"][0]
+            output1, mask1 = r["output1"][0], r["mask1"][0]
+            final_warp = r["final_warp"][0]
+            t = tps_break_warp(output1, mask1, r["H_warp"][0],
+                               r["H_warp_mask"][0], final_warp,
+                               out["flow"][0], wm[0], hm[0], self.tps_cfg,
+                               occlusion_mask=occ0,
+                               valid_flow_mask=valid_flow)
+            mixed = self.mix_fn(t["output2"], t["mask2"], output1, mask1,
+                                final_warp, occ0, inpaint=inpaint,
+                                inpainter_name=self.inpainter_name)
+            mask2 = mixed.tps_final_warp_mask
+            output2 = mixed.tps_final_warp * mask2
+            blend = ((output1 * mask1 + output2 * mask2)
+                     / torch.clamp(mask1 + mask2, min=1e-6)).clamp(0, 255)
+            res = dict(H=out["H"][0], flow=out["flow"][0],
+                       canvas_box=out["canvas_box"][0],
+                       H_warp=r["H_warp"][0], final_warp=final_warp,
+                       output1=output1, mask1=mask1, output2=output2,
+                       mask2=mask2, new_blend_image=blend,
+                       occlusion_mask=occ0,
+                       inpaint_area_mask=mixed.inpaint_area_mask,
+                       control_src=t["control_src"],
+                       control_dst=t["control_dst"],
+                       control_valid=t["control_valid"],
+                       canvas=(out_h, out_w), true_hw=(true_h, true_w))
         if self.use_composition:
-            res.update(self._compose(output1, output2, mask1, mask2))
-            if timings is not None:
-                timings["composition_ms"] = (self._sync() - t3) * 1e3
+            with span("stitch.composition", timings, "composition_ms", dev):
+                res.update(self._compose(output1, output2, mask1, mask2))
         return res
 
     def _compose(self, o1, o2, m1, m2) -> Dict[str, torch.Tensor]:

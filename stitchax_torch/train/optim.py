@@ -23,6 +23,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.tracing import count_sync, span
+
 B1, B2 = 0.9, 0.999         # optax.adamw's defaults
 
 f32 = np.float32
@@ -105,6 +107,7 @@ def clip_by_global_norm(tensors: List[torch.Tensor], clip: float
     """optax.clip_by_global_norm: the tensors as they are when their global
     norm is below `clip`, else each `t / norm * clip`."""
     norm = global_norm(tensors)
+    count_sync(norm.device)             # bool() waits for the norm
     if bool(norm < clip):
         return list(tensors)
     return list(torch._foreach_mul(torch._foreach_div(tensors, norm), clip))
@@ -171,14 +174,16 @@ class Optimizer:
         lr = self.schedule(state.count)
         mu, nu, updates = dict(state.mu), dict(state.nu), {}
         for names, factor in self.groups(list(grads)):
-            g = clip_by_global_norm([grads[n] for n in names], cfg.clip)
-            m, v, u = adam_moments(g, [mu[n] for n in names],
-                                   [nu[n] for n in names], count_inc,
-                                   cfg.epsilon)
-            u = torch._foreach_add(u, torch._foreach_mul(
-                [params[n] for n in names], cfg.adamw_decay))
-            step = -float(f32(lr) * f32(factor))
-            u = torch._foreach_mul(u, step)
+            with span("train.clip"):
+                g = clip_by_global_norm([grads[n] for n in names], cfg.clip)
+            with span("train.adamw"):
+                m, v, u = adam_moments(g, [mu[n] for n in names],
+                                       [nu[n] for n in names], count_inc,
+                                       cfg.epsilon)
+                u = torch._foreach_add(u, torch._foreach_mul(
+                    [params[n] for n in names], cfg.adamw_decay))
+                step = -float(f32(lr) * f32(factor))
+                u = torch._foreach_mul(u, step)
             for n, mi, vi, ui in zip(names, m, v, u):
                 mu[n], nu[n], updates[n] = mi, vi, ui
         return updates, OptState(count=count_inc, mu=mu, nu=nu)

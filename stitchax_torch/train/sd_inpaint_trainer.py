@@ -22,7 +22,6 @@ reproduce). `save_sd_checkpoint` packs the nets as stitchax's
 
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -34,7 +33,8 @@ from ..models.diffusion import ddim_schedule
 from ..models.vae import AutoencoderKL
 from ..ops.sampling import image_resize
 from .optim import Adam, apply_updates
-from .trainer import TrainState, _sync_mark
+from ..utils.tracing import span
+from .trainer import TrainState
 
 
 def sd_alphas_cumprod(num_train_steps: int = 1000) -> np.ndarray:
@@ -85,10 +85,9 @@ def _grads(loss: torch.Tensor, state: TrainState) -> Dict[str, torch.Tensor]:
 
 
 def _adam(state: TrainState, tx: Adam, grads, device, timings):
-    t0 = time.perf_counter()
-    updates, opt_state = tx.update(grads, state.opt_state, state.params)
-    apply_updates(state.params, updates)
-    _sync_mark(timings, "adam_ms", t0, device)
+    with span("sd.adam", timings, "adam_ms", device):
+        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        apply_updates(state.params, updates)
     return TrainState(step=state.step + 1, params=state.params,
                       opt_state=opt_state)
 
@@ -101,15 +100,14 @@ def make_vae_train_step(vae: AutoencoderKL, tx: Adam) -> Callable:
 
     def loss_and_grads(state: TrainState, x: torch.Tensor,
                        timings: Optional[dict] = None):
-        t0 = _sync_mark(timings, None, time.perf_counter(), x.device)
-        x = _nchw(x)
-        diff = vae(x) - x
-        l1 = diff.abs().mean()
-        l2 = diff.square().mean()
-        total = l1 + l2
-        t0 = _sync_mark(timings, "forward_ms", t0, x.device)
-        grads = _grads(total, state)
-        _sync_mark(timings, "backward_ms", t0, x.device)
+        with span("sd.vae_forward", timings, "forward_ms", x.device):
+            x = _nchw(x)
+            diff = vae(x) - x
+            l1 = diff.abs().mean()
+            l2 = diff.square().mean()
+            total = l1 + l2
+        with span("sd.vae_backward", timings, "backward_ms", x.device):
+            grads = _grads(total, state)
         return {"total": total.detach(), "l1": l1.detach(),
                 "l2": l2.detach()}, grads
 
@@ -172,24 +170,23 @@ def make_diffusion_train_step(unet: nn.Module, cnet: nn.Module,
     def loss_and_grads(state: TrainState, image01, hole, t, eps,
                        timings: Optional[dict] = None):
         dev = image01.device
-        t0 = _sync_mark(timings, None, time.perf_counter(), dev)
-        with torch.no_grad():
-            z0, z_masked, mask_lat, control = inpaint_model_inputs(
-                vae, image01, hole)
-        t0 = _sync_mark(timings, "vae_encode_ms", t0, dev)
-        if dev not in acp_by_device:
-            acp_by_device[dev] = torch.from_numpy(acp_np).to(dev)
-        a_t = acp_by_device[dev][t][:, None, None, None]
-        lat_t = torch.sqrt(a_t) * z0 + torch.sqrt(1.0 - a_t) * eps
-        inp = torch.cat([lat_t, mask_lat, z_masked], 1)
-        tb = t.to(torch.float32)
-        ctx = context.expand(z0.shape[0], *context.shape[1:])
-        res, mid = cnet(lat_t, tb, ctx, control)
-        eps_hat = unet(inp, tb, ctx, res, mid)
-        mse = (eps_hat - eps).square().mean()
-        t0 = _sync_mark(timings, "forward_ms", t0, dev)
-        grads = _grads(mse, state)
-        _sync_mark(timings, "backward_ms", t0, dev)
+        with span("sd.vae_encode", timings, "vae_encode_ms", dev):
+            with torch.no_grad():
+                z0, z_masked, mask_lat, control = inpaint_model_inputs(
+                    vae, image01, hole)
+        with span("sd.forward", timings, "forward_ms", dev):
+            if dev not in acp_by_device:
+                acp_by_device[dev] = torch.from_numpy(acp_np).to(dev)
+            a_t = acp_by_device[dev][t][:, None, None, None]
+            lat_t = torch.sqrt(a_t) * z0 + torch.sqrt(1.0 - a_t) * eps
+            inp = torch.cat([lat_t, mask_lat, z_masked], 1)
+            tb = t.to(torch.float32)
+            ctx = context.expand(z0.shape[0], *context.shape[1:])
+            res, mid = cnet(lat_t, tb, ctx, control)
+            eps_hat = unet(inp, tb, ctx, res, mid)
+            mse = (eps_hat - eps).square().mean()
+        with span("sd.backward", timings, "backward_ms", dev):
+            grads = _grads(mse, state)
         return {"total": mse.detach(), "mse": mse.detach()}, grads
 
     def train_step(state: TrainState, image01, hole,

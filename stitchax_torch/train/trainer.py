@@ -15,7 +15,6 @@ the optimizer state (stitchax writes orbax directories).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -27,6 +26,7 @@ from ..align.adapter import AlignConfig, _normalized, predict_homography_matrix
 from ..models.layers import train_batch_statistics
 from ..ops.occlusion import compute_occlusion_b
 from ..ops.sampling import homography_warp_b
+from ..utils.tracing import span
 from .losses import LossConfig, sequence_alignment_loss
 from .optim import (OptimConfig, OptState, Optimizer, apply_updates,
                     fetch_optimizer, global_norm)
@@ -102,19 +102,6 @@ def occlusion_mask(flow: Callable, fwd: Dict[str, object],
     return (occ >= 0.5).to(img1.dtype)
 
 
-def _sync_mark(timings, key, t0, device):
-    """Add ms since t0 to timings[key] (after the device is done; key None
-    records nothing) when `timings` is a dict; returns the new t0."""
-    if timings is None:
-        return t0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t = time.perf_counter()
-    if key is not None:
-        timings[key] = timings.get(key, 0.0) + (t - t0) * 1e3
-    return t
-
-
 def make_train_step(homo: nn.Module, flow: nn.Module, tx: Optimizer,
                     align_cfg: AlignConfig, loss_cfg: LossConfig,
                     use_fb_consistency_mask: bool = True,
@@ -137,45 +124,50 @@ def make_train_step(homo: nn.Module, flow: nn.Module, tx: Optimizer,
         """(losses, {name: gradient}) at the state's tensors; their .grad
         is left None. With a `world`, img1 / img2 are this rank's block of
         the global batch (`parallel.make_parallel_train_step`)."""
-        t0 = _sync_mark(timings, None, time.perf_counter(),
-                        img1.device)
-        fwd = align_train_forward(homo_fn, flow_fn, img1, img2, align_cfg)
-        t0 = _sync_mark(timings, "forward_ms", t0, img1.device)
+        dev = img1.device
+        with span("train.forward", timings, "forward_ms", dev):
+            fwd = align_train_forward(homo_fn, flow_fn, img1, img2,
+                                      align_cfg)
         occ = None
         if use_fb_consistency_mask:
-            occ = occlusion_mask(flow, fwd, img1, align_cfg)
-            t0 = _sync_mark(timings, "backward_flow_ms", t0, img1.device)
-        losses = sequence_alignment_loss(img1, fwd["output_H"],
-                                         fwd["flow_predictions"], occ,
-                                         loss_cfg, world)
-        for p in state.params.values():
-            p.grad = None
-        losses["total"].backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in state.params.items()}
-        for p in state.params.values():
-            p.grad = None
-        _sync_mark(timings, "backward_ms", t0, img1.device)
+            with span("train.backward_flow", timings, "backward_flow_ms",
+                      dev):
+                occ = occlusion_mask(flow, fwd, img1, align_cfg)
+        # the loss and the backward pass share "backward_ms"
+        with span("train.loss", timings, "backward_ms", dev):
+            losses = sequence_alignment_loss(img1, fwd["output_H"],
+                                             fwd["flow_predictions"], occ,
+                                             loss_cfg, world)
+        with span("train.backward", timings, "backward_ms", dev):
+            for p in state.params.values():
+                p.grad = None
+            losses["total"].backward()
+            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for n, p in state.params.items()}
+            for p in state.params.values():
+                p.grad = None
         return {k: v.detach() for k, v in losses.items()}, grads
 
     def apply_gradients(state: TrainState, metrics: dict, grads: dict,
                         timings: Optional[dict] = None):
         """Clip + AdamW with `grads`; metrics gain grad_norm, the raw
         gradients' global norm."""
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            grad_norm = global_norm(list(grads.values()))
-        updates, opt_state = tx.update(grads, state.opt_state, state.params)
-        apply_updates(state.params, updates)
-        _sync_mark(timings, "update_ms", t0, grad_norm.device)
+        dev = next(iter(state.params.values())).device
+        with span("train.update", timings, "update_ms", dev):
+            with torch.no_grad():
+                grad_norm = global_norm(list(grads.values()))
+            updates, opt_state = tx.update(grads, state.opt_state,
+                                           state.params)
+            apply_updates(state.params, updates)
         metrics["grad_norm"] = grad_norm
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state), metrics
 
     def train_step(state: TrainState, img1: torch.Tensor, img2: torch.Tensor,
                    timings: Optional[dict] = None):
-        metrics, grads = loss_and_grads(state, img1, img2, timings)
-        return apply_gradients(state, metrics, grads, timings)
+        with span("train.step", root=state.step):
+            metrics, grads = loss_and_grads(state, img1, img2, timings)
+            return apply_gradients(state, metrics, grads, timings)
 
     train_step.loss_and_grads = loss_and_grads
     train_step.apply_gradients = apply_gradients

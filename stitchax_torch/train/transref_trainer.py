@@ -21,7 +21,6 @@ the port's `StitchModels.from_npz(..., transref=...)` both load.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -31,7 +30,8 @@ import torch.nn as nn
 from .. import convert
 from ..models.vgg import transref_total_loss
 from .optim import Adam, OptState, apply_updates
-from .trainer import TrainState, _sync_mark
+from ..utils.tracing import span
+from .trainer import TrainState
 
 
 @dataclass(frozen=True)
@@ -105,28 +105,29 @@ def make_transref_train_step(model: nn.Module, vgg: Callable, tx: Adam,
         are means over the batch, so a rank's block needs nothing of the
         other ranks' (`world` is not read): averaging the blocks'
         gradients gives the global batch's."""
-        t0 = _sync_mark(timings, None, time.perf_counter(), gt.device)
-        out = model(prepare_inputs(gt, mask), mask, ref)
-        t0 = _sync_mark(timings, "forward_ms", t0, gt.device)
-        losses = total_loss(vgg, out, gt, mask, l1_weight=cfg.lambda_l1,
-                            perc_weight=cfg.lambda_perceptual,
-                            style_weight=cfg.lambda_style)
-        t0 = _sync_mark(timings, "loss_ms", t0, gt.device)
-        names = list(state.params)
-        grads = torch.autograd.grad(
-            losses["total"], [state.params[n] for n in names],
-            allow_unused=True)
-        grads = {n: torch.zeros_like(state.params[n]) if g is None else g
-                 for n, g in zip(names, grads)}
-        _sync_mark(timings, "backward_ms", t0, gt.device)
+        dev = gt.device
+        with span("transref.forward", timings, "forward_ms", dev):
+            out = model(prepare_inputs(gt, mask), mask, ref)
+        with span("transref.loss", timings, "loss_ms", dev):
+            losses = total_loss(vgg, out, gt, mask, l1_weight=cfg.lambda_l1,
+                                perc_weight=cfg.lambda_perceptual,
+                                style_weight=cfg.lambda_style)
+        with span("transref.backward", timings, "backward_ms", dev):
+            names = list(state.params)
+            grads = torch.autograd.grad(
+                losses["total"], [state.params[n] for n in names],
+                allow_unused=True)
+            grads = {n: torch.zeros_like(state.params[n]) if g is None
+                     else g for n, g in zip(names, grads)}
         return {k: v.detach() for k, v in losses.items()}, grads
 
     def apply_gradients(state: TrainState, metrics: dict, grads: dict,
                         timings: Optional[dict] = None):
-        t0 = time.perf_counter()
-        updates, opt_state = tx.update(grads, state.opt_state, state.params)
-        apply_updates(state.params, updates)
-        _sync_mark(timings, "adam_ms", t0, metrics["total"].device)
+        with span("transref.adam", timings, "adam_ms",
+                  metrics["total"].device):
+            updates, opt_state = tx.update(grads, state.opt_state,
+                                           state.params)
+            apply_updates(state.params, updates)
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state), metrics
 
