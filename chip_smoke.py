@@ -34,11 +34,12 @@ Phases, each printing one JSON line before the next begins:
                          the CPU, compared
   stitch_vs_cpu_default  the same for the default configuration, down to
                          the composition and the learned masks
-  kernels_evaluation     K1, K3 and K4 against their plain versions at the
-                         evaluation's shapes (fp32, batch 12), timed beside
-                         their bounds and library yardsticks (K1's and K4's
-                         at fp32 accuracy on the tensor cores, 3xTF32, and
-                         at the CUDA cores' fp32 rate)
+  kernels_evaluation     K1, K3, K4 and K5 against their plain versions at
+                         the evaluation's shapes (fp32, batch 12), timed
+                         beside their bounds and library yardsticks (K1's,
+                         K4's and K5's at fp32 accuracy on the tensor cores,
+                         3xTF32, and at the CUDA cores' fp32 rate; K5's
+                         yardstick F.conv2d, cuDNN in fp32)
   stitch_vs_stitchax     the fast_cv_g8 stitch of demo_data/demo1 and demo2
                          in fp32 on the card against stitchax's own outputs
                          (its jitted Stitcher on the CPU), committed in
@@ -73,11 +74,11 @@ Phases, each printing one JSON line before the next begins:
                          at the 512x768 canvas in fp32 (TF32 off), ms per
                          step, peak memory, finite; not held to stitchax
                          (no such weights in the repository)
-  kernels_backward       K1, K3 and K4 inside autograd at the train step's
-                         shapes (fp32): the autograd Function's output and
-                         every input gradient against the plain version's
-                         autograd, forward and backward ms by events, the
-                         forward's device time
+  kernels_backward       K1, K3, K4 and K5 inside autograd at the train
+                         step's shapes (fp32): the autograd Function's
+                         output and every input gradient against the plain
+                         version's autograd, forward and backward ms by
+                         events, the forward's device time
   train_vs_stitchax      one fp32 train step (TF32 off) from the trained
                          npz on the first committed pair at 512^2 against
                          stitchax's jitted step on the CPU
@@ -119,8 +120,8 @@ Phases, each printing one JSON line before the next begins:
                          their splits, peak memory and device kernels
   na_flowformer          FlowFormer++ with the NA vertical layer (seeded;
                          the trained npz for the shared leaves) at 512^2 in
-                         fp32: finite, K1 / K3 / K4 launched, ms a forward;
-                         card against CPU at 128^2
+                         fp32: finite, K1 / K3 / K4 / K5 launched, ms a
+                         forward; card against CPU at 128^2
   pretrain_vs_stitchax   the MAE pretrain model (FlowFormerPretrain, the
                          shipped widths, the trained npz's FlowFormer++
                          leaves and a seeded pretrain head) at 368x496,
@@ -212,6 +213,11 @@ TOL = {
     # order and the split's last bits (its CPU emulation reads ~1e-6,
     # tests/test_torch_kernels.py)
     "gsa_attention_fp32": 2e-5,
+    # K5 (3xTF32, each stage of 32 channels summed apart, then in fp32) and
+    # the plain version (cuDNN fp32, by FFT at the evaluation's shapes):
+    # each 1e-6 to 3e-6 from an fp64 convolution on an H100 at K = 2304,
+    # outputs up to ~2
+    "conv3x3": 2e-5,
     # K4 in fp32 (3xTF32, as K1)
     "window_attention_fp32": 2e-5,
     # every product and sum rounded on its own in both: bit-equal
@@ -444,6 +450,29 @@ def fp32_attention_bound(nbytes, nflops, n_exp):
             "fp32_core_bound_ms": bound_ms(nbytes, nflops, PEAK["fp32"])[0]}
 
 
+def conv3x3_bound(B, H, W, Cin, Cout):
+    """K5's least time at fp32's accuracy (3xTF32), as
+    `fp32_attention_bound` takes it with no exponentials: the input read
+    once, the weight and bias once, the output written once; 2 x 9 Cin
+    Cout flops an output pixel."""
+    M = B * H * W
+    return fp32_attention_bound(
+        4 * (M * (Cin + Cout) + 9 * Cin * Cout + Cout),
+        18.0 * M * Cin * Cout, 0)
+
+
+def conv_inputs(B, Cin, Cout, g, grad=False):
+    """K5's inputs at the motion encoder's 64^2 map: a ReLU's output, and
+    a weight and bias at the scale of the layer's initialisation."""
+    import torch
+    dev = torch.device("cuda")
+    bound = (9 * Cin) ** -0.5
+    x = torch.randn(B, 64, 64, Cin, device=dev, generator=g).relu()
+    w = (torch.rand(Cout, Cin, 3, 3, device=dev, generator=g) * 2 - 1) * bound
+    b = (torch.rand(Cout, device=dev, generator=g) * 2 - 1) * bound
+    return tuple(t.requires_grad_(grad) for t in (x, w, b))
+
+
 def tps_bound_ms(N, out_h, out_w):
     """K2's least time: the larger of its bytes (centers read once, the
     (H, W, 2) map written once), its fp32 flops per (pixel, center) pair
@@ -544,8 +573,14 @@ EVAL_WINDOW_CALLS = [(EVAL_BATCH, 128, 128, 128, 4, True, 6),
                      (EVAL_BATCH, 64, 64, 256, 8, True, 6),
                      (8 * EVAL_BATCH, 64, 64, 128, 8, False, 6)]
 EVAL_COST_P, EVAL_COST_CALLS = EVAL_BATCH * 64 * 64, 24
+# K5: the motion encoder's three 3x3 convolutions (Cin, Cout) in each
+# decoder iteration of both calls, at B x 64 x 64
+CONV_LAYERS = [(256, 192), (128, 64), (256, 126)]
+EVAL_CONV_CALLS = 2 * DECODER_ITERS
 EXPECT_EVAL_LAUNCHES = {"gsa_attention": 18, "cost_lookup": 24,
-                        "window_attention": 18, "tps_grid": 0}
+                        "window_attention": 18, "tps_grid": 0,
+                        "conv3x3": len(CONV_LAYERS) * EVAL_CONV_CALLS,
+                        "conv3x3_input_grad": 0}
 EVAL_REPORT_KEYS = ("avg_psnr", "avg_ssim", "easy_psnr", "mid_psnr",
                     "hard_psnr", "easy_ssim", "mid_ssim", "hard_ssim",
                     "num_pairs")
@@ -887,16 +922,21 @@ def kernel_rows(tps_inputs, launches):
 
 
 def eval_kernel_rows():
-    """K1, K3 and K4 against their plain versions on the card at the
+    """K1, K3, K4 and K5 against their plain versions on the card at the
     evaluation's shapes (fp32, batch 12), timed beside their bounds at the
     fp32 peak and their library yardsticks. Returns {kernel: summary per
     evaluation batch} and one entry per call shape."""
     import torch
     import torch.nn.functional as F
 
-    from stitchax_torch.ops.kernels import (cost_lookup, gsa_attention,
+    from stitchax_torch.ops.kernels import (conv3x3, cost_lookup,
+                                            gsa_attention,
                                             window_attention as wa)
+    from stitchax_torch.utils.precision import fp32_exact
 
+    # the evaluation's fp32: K5's plain version and yardstick, cuDNN, in
+    # fp32 (TF32 is on for convolutions by default)
+    fp32_exact()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     f32 = torch.float32
@@ -1019,6 +1059,25 @@ def eval_kernel_rows():
                 lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5),
             **bound}, calls)
         del args, q, k, v, qh, kh, vh
+
+    for Cin, Cout in CONV_LAYERS:
+        x, w, b = conv_inputs(EVAL_BATCH, Cin, Cout, g)
+        k5 = lambda: conv3x3.conv3x3_relu(x, w, b)
+        plain = lambda: conv3x3.conv3x3_relu_plain(x, w, b)
+        e = (k5() - plain()).abs().max().item()
+        xn = x.permute(0, 3, 1, 2)
+        conv = lambda: F.conv2d(xn, w, b, padding=1)
+        add("conv3x3", {
+            "kernel": "conv3x3", "B": EVAL_BATCH, "H": 64, "W": 64,
+            "Cin": Cin, "Cout": Cout, "dtype": "float32", "max_abs_err": e,
+            "tol": TOL["conv3x3"], "ms": cuda_time(k5, iters=10),
+            "device_ms": device_ms(k5, iters=10),
+            "plain_ms": cuda_time(plain, iters=3, warmup=1),
+            "library": "F.conv2d, fp32 (cuDNN, TF32 off)",
+            "library_ms": cuda_time(conv, iters=3, warmup=1),
+            "library_device_ms": device_ms(conv, iters=3),
+            **conv3x3_bound(EVAL_BATCH, 64, 64, Cin, Cout)}, EVAL_CONV_CALLS)
+        del x, w, b, xn
     for r in rows.values():
         r["bound_by"] = max(r["bound_by"], key=r["bound_by"].get)
     torch.cuda.empty_cache()
@@ -1103,7 +1162,8 @@ def stitch_phase(img1, img2, config=FAST):
     launches = dict(library.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check_finite(out)
-    want = EXPECT_LAUNCHES[config]
+    # bf16: the motion encoder keeps cuDNN
+    want = dict(EXPECT_LAUNCHES[config], conv3x3=0)
     if (launches["tps_grid"] < 1
             or any(launches[k] != n for k, n in want.items())):
         raise RuntimeError(f"{config}: kernel launches per stitch "
@@ -1966,8 +2026,13 @@ TRAIN_WINDOW_CALLS = [(1, 128, 128, 128, 4, True, 3),
                       (8, 64, 64, 128, 8, False, 3)]
 TRAIN_COST_P = 64 * 64
 FLOW_CALLS_PER_STEP = 2
-EXPECT_TRAIN_LAUNCHES = {"gsa_attention": 18, "cost_lookup": 24,
-                         "window_attention": 18, "tps_grid": 0}
+# K5 in each decoder iteration of both calls; its input gradient in the
+# backward of the call under autograd
+EXPECT_TRAIN_LAUNCHES = {
+    "gsa_attention": 18, "cost_lookup": 24, "window_attention": 18,
+    "tps_grid": 0,
+    "conv3x3": len(CONV_LAYERS) * FLOW_CALLS_PER_STEP * DECODER_ITERS,
+    "conv3x3_input_grad": len(CONV_LAYERS) * DECODER_ITERS}
 # of those, the forward under autograd's (the kernels' autograd Functions,
 # library.grad_launches): the calls of the tables above, once each. The
 # per-step forward / backward ms are weighted by these tables, so the step
@@ -1976,7 +2041,8 @@ EXPECT_TRAIN_GRAD_LAUNCHES = {
     "gsa_attention": sum(c[-1] for c in TRAIN_GSA_CALLS),
     "cost_lookup": DECODER_ITERS,
     "window_attention": sum(c[-1] for c in TRAIN_WINDOW_CALLS),
-    "tps_grid": 0}
+    "tps_grid": 0, "conv3x3": len(CONV_LAYERS) * DECODER_ITERS,
+    "conv3x3_input_grad": 0}
 # the autograd Function's gradients against the plain version's autograd
 # on the same inputs: both differentiate the plain version at the same
 # saved inputs, so they differ only by the order of atomic adds (K3's
@@ -2072,7 +2138,7 @@ def _fwd_bwd_ms(fn, leaves, g_out, iters=5):
 
 
 def train_kernel_rows(launches, grad_launches):
-    """K1, K3 and K4 inside autograd at the train step's shapes (fp32): the
+    """K1, K3, K4 and K5 inside autograd at the train step's shapes (fp32): the
     autograd Function's output and every input gradient against the plain
     version's autograd on the card for a seeded upstream gradient, and
     forward / backward ms by events, per call and summed over a step by
@@ -2080,7 +2146,8 @@ def train_kernel_rows(launches, grad_launches):
     counted launches (all / under grad, from `train_vs_stitchax`)."""
     import torch
 
-    from stitchax_torch.ops.kernels import (cost_lookup, gsa_attention,
+    from stitchax_torch.ops.kernels import (conv3x3, cost_lookup,
+                                            gsa_attention,
                                             window_attention as wa)
 
     import torch.nn.functional as F
@@ -2261,6 +2328,43 @@ def train_kernel_rows(launches, grad_launches):
                        "windows, fp32 (partition and bias included)",
             **library(sdpa, leaves, None)}, calls)
         del leaves, g_out
+
+    for Cin, Cout in CONV_LAYERS:
+        leaves = conv_inputs(1, Cin, Cout, g, grad=True)
+        x, w, b = leaves
+        # K5's and cuDNN's outputs differ by ~1e-6: no upstream gradient
+        # where the convolution is that close to 0, where their ReLU masks
+        # may differ
+        with torch.no_grad():
+            pre = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1)
+        g_out = (torch.randn(1, 64, 64, Cout, device=dev, generator=g)
+                 * (pre.permute(0, 2, 3, 1).abs() > 1e-4))
+        fn = lambda: conv3x3.conv3x3_relu(x, w, b)
+        plain = lambda: conv3x3.conv3x3_relu_plain(x, w, b)
+        e, eg, _ = _grad_check(fn, plain, leaves, g_out)
+        f, bw = _fwd_bwd_ms(fn, leaves, g_out)
+        pf, pb = _fwd_bwd_ms(plain, leaves, g_out, iters=3)
+        bound = conv3x3_bound(1, 64, 64, Cin, Cout)
+        add("conv3x3", {
+            "kernel": "conv3x3", "B": 1, "H": 64, "W": 64, "Cin": Cin,
+            "Cout": Cout, "dtype": "float32", "max_abs_err": e,
+            "tol": TOL["conv3x3"], "max_grad_rel_err": eg,
+            "grad_tol": TRAIN_GRAD_TOL, "forward_ms": f,
+            "forward_device_ms": device_ms(fn, iters=5), "backward_ms": bw,
+            "plain_forward_ms": pf, "plain_backward_ms": pb,
+            "forward_bound_ms": bound["bound_ms"],
+            "forward_bound_by": bound["bound_by"],
+            "forward_bound_unit": bound["bound_unit"],
+            "forward_fp32_core_bound_ms": bound["fp32_core_bound_ms"],
+            "library": "F.conv2d, fp32 (cuDNN, TF32 off), and its autograd",
+            **library(lambda: F.conv2d(x.permute(0, 3, 1, 2), w, b,
+                                       padding=1), leaves,
+                      g_out.permute(0, 3, 1, 2))}, DECODER_ITERS)
+        del leaves, x, w, b, pre, g_out
+    rows["conv3x3"]["backward"] = (
+        "the ReLU's mask, the input's gradient on K5 (the weight "
+        "transposed and flipped), the weight's and the bias's by "
+        "convolution_backward; no forward recomputed")
     for r in rows.values():
         by = r["forward_bound_by"]
         r["forward_bound_by"] = max(by, key=by.get)
@@ -3236,7 +3340,8 @@ def profile_sd_train_step():
 # section 2 for the reading
 NA_SIZE, NA_CPU_SIZE = 512, 128
 NA_TOL = {"flow_max_abs_px": 6e-3}      # read 5.9e-4 px
-EXPECT_NA_KERNELS = ("gsa_attention", "cost_lookup", "window_attention")
+EXPECT_NA_KERNELS = ("gsa_attention", "cost_lookup", "window_attention",
+                     "conv3x3")
 
 
 def na_flowformer(device):
@@ -3270,8 +3375,8 @@ def na_flowformer(device):
 
 def na_flowformer_phase():
     """The NA variant on the card at 512^2 (fp32, TF32 off): finite flow,
-    ms per forward, K1 / K3 / K4 launched; then card against the port's CPU
-    run at NA_CPU_SIZE on the same seeded images (NA_TOL)."""
+    ms per forward, K1 / K3 / K4 / K5 launched; then card against the
+    port's CPU run at NA_CPU_SIZE on the same seeded images (NA_TOL)."""
     import torch
 
     from stitchax_torch.ops.kernels import library
@@ -3328,8 +3433,9 @@ PRETRAIN_TOL = {"loss_rel": 1e-4, "leaf_norm_rel": 1e-3}
 # the kernels of one pretrain forward (30 queries, encoder depth 3): K1 and
 # K4 once per twins block of four twins passes (2 x 4) and of the three
 # vertical layers, K3 at r = 7 (targets) and r = 4 (queries) per query
+# the pretrain decoder has no motion encoder: no K5
 EXPECT_PRETRAIN_LAUNCHES = {"gsa_attention": 11, "window_attention": 11,
-                            "cost_lookup": 60}
+                            "cost_lookup": 60, "conv3x3": 0}
 EXPECT_PRETRAIN_RADII = {7: 30, 4: 30}
 
 
@@ -4127,6 +4233,13 @@ def main() -> int:
     for row in rows:
         if row["name"] in eval_rows:
             row["evaluation"] = eval_rows[row["name"]]
+    # K5 runs in fp32 only: no row of the bf16 stitches
+    rows.append({"name": "conv3x3", "route": "cuda",
+                 "source": "stitchax_torch/csrc/conv3x3.cu",
+                 "replaces": None, "launches": 0,
+                 "launches_by_config": {c: n["conv3x3"]
+                                        for c, n in launches.items()},
+                 "evaluation": eval_rows["conv3x3"]})
 
     stitch_vs_cpu_phase(img1, img2)
     stitch_vs_cpu_default_phase(img1, img2)

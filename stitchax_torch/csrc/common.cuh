@@ -1,7 +1,7 @@
 // Shared helpers for the stitchax_torch kernels: element-type conversion
 // between the storage type (float or bf16) and the fp32 the kernels compute in,
 // and the tensor-core fragment helpers that K1 and K4 share: bf16 for their
-// bf16 paths, 3xTF32 for their fp32 paths.
+// bf16 paths, 3xTF32 for their fp32 paths (and K5's).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,6 +92,25 @@ __device__ __forceinline__ uint4 split_pair(float x0, float x1) {
   uint4 r;
   split_tf32(x0, r.x, r.z);
   split_tf32(x1, r.y, r.w);
+  return r;
+}
+
+// The split as K5 takes it (csrc/conv3x3.cu): hi rounded as cvt.rna rounds
+// (to nearest, ties away from zero: half of the dropped 13 bits added to
+// the magnitude, then cut) by two integer operations, where `cvt.rna`
+// compiles to a compare-and-select sequence; lo = x - hi exactly, left in
+// fp32 for the tensor cores, which read its top 10 mantissa bits (lo
+// truncated: at most 2^-21 of x lost, against 2^-22 for a rounded lo).
+__device__ __forceinline__ void split_tf32_int(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ uint4 split_pair_int(float x0, float x1) {
+  uint4 r;
+  split_tf32_int(x0, r.x, r.z);
+  split_tf32_int(x1, r.y, r.w);
   return r;
 }
 

@@ -6,10 +6,11 @@ pixel; its vertical layers are twins blocks or, with
 `vertical_encoder_attn="NA"`, `na_layer`'s neighborhood attention) ->
 MemoryDecoder, a Python loop of `decoder_depth` recurrent
 iterations whose local cost lookup is the CUDA kernel K3
-(`ops.kernels.cost_lookup`). Inference convex-upsamples only the final
-flow (`upsample_all=False`, as stitchax's Stitcher builds it); training
-(`upsample_all=True`, stitchax's default) upsamples every iteration's
-prediction for the sequence loss. Inputs NHWC in [0, 255].
+(`ops.kernels.cost_lookup`) and whose motion encoder's 3x3 convolutions
+are K5 in fp32 (`ops.kernels.conv3x3`). Inference convex-upsamples only
+the final flow (`upsample_all=False`, as stitchax's Stitcher builds it);
+training (`upsample_all=True`, stitchax's default) upsamples every
+iteration's prediction for the sequence loss. Inputs NHWC in [0, 255].
 
 `FlowFormerPretrain` is the MAE pretraining model (stitchax
 flowformer.py:903): the same encoders with the inner cost maps masked
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 
 from ..ops.flow import convex_upsample_flow_b
 from ..ops.grid import coords_grid
+from ..ops.kernels.conv3x3 import conv3x3_relu
 from ..ops.kernels.cost_lookup import cost_lookup
 from ..utils.tracing import span
 from .layers import (Conv, TokenFfn, linear_position_embedding_sine,
@@ -336,10 +338,19 @@ class BasicMotionEncoder(nn.Module):
         self.conv = Conv(192 + 64, 126, 3, padding=1)
 
     def forward(self, flow, corr):
+        # fp32 takes K5 for the three 3x3 convolutions (its plain version on
+        # the CPU); bf16 keeps cuDNN
+        fp32 = corr.dtype == torch.float32
+
+        def relu3x3(conv, x):
+            if fp32:
+                return conv3x3_relu(x.contiguous(), conv.weight, conv.bias)
+            return F.relu(conv(x))
+
         with span("flow.motion_encoder"):
-            cor = F.relu(self.convc2(F.relu(self.convc1(corr))))
-            flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
-            out = F.relu(self.conv(torch.cat([cor, flo], -1)))
+            cor = relu3x3(self.convc2, F.relu(self.convc1(corr)))
+            flo = relu3x3(self.convf2, F.relu(self.convf1(flow)))
+            out = relu3x3(self.conv, torch.cat([cor, flo], -1))
             return torch.cat([out, flow], -1)
 
 

@@ -34,7 +34,8 @@ FLOAT32, BFLOAT16 = 0, 1
 
 # launches of each kernel, bumped by its wrapper right after a launch
 launches: Dict[str, int] = {"gsa_attention": 0, "cost_lookup": 0,
-                            "tps_grid": 0, "window_attention": 0}
+                            "tps_grid": 0, "window_attention": 0,
+                            "conv3x3": 0, "conv3x3_input_grad": 0}
 # of those, the launches made by an autograd Function's forward (under grad)
 grad_launches: Dict[str, int] = dict(launches)
 # K3's launches by lookup radius (r = 4 in the decoder, r = 7 for the MAE
@@ -141,8 +142,9 @@ def load_library() -> ctypes.CDLL:
     lib.stx_tps_grid.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, vp]
     lib.stx_window_attention.argtypes = [vp] * 7 + [ci] * 6 + [cl] * 5 + [
         ci, vp]
+    lib.stx_conv3x3.argtypes = [vp] * 4 + [ci] * 6 + [vp]
     for fn in (lib.stx_gsa_attention, lib.stx_cost_lookup, lib.stx_tps_grid,
-               lib.stx_window_attention):
+               lib.stx_window_attention, lib.stx_conv3x3):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -1,6 +1,8 @@
-"""The port's four kernels: each plain PyTorch version against the JAX
-function it replaces, on the same numpy inputs (CPU). The CUDA kernels
-against their plain versions are in test_torch_kernels_gpu.py."""
+"""The port's kernels: each plain PyTorch version against the JAX function
+it replaces, on the same numpy inputs (CPU), and the fp32 tensor-core
+kernels' arithmetic emulated in their order (K5, which replaces no JAX
+function, against an fp64 convolution). The CUDA kernels against their
+plain versions are in test_torch_kernels_gpu.py."""
 
 import importlib.util
 import os
@@ -17,6 +19,7 @@ from stitchax.ops.pallas.gsa_attention import (gsa_attention_pallas,
 from stitchax.ops.pallas.tps_kernel import (tps_eval_grid_pallas,
                                             tps_eval_grid_ref)
 from stitchax.ops.window_attention import window_attention_split
+from stitchax_torch.ops.kernels import conv3x3 as tconv
 from stitchax_torch.ops.kernels import cost_lookup as tcl
 from stitchax_torch.ops.kernels import gsa_attention as tgsa
 from stitchax_torch.ops.kernels import library
@@ -571,3 +574,126 @@ def test_window_wrapper_uses_plain_on_cpu(rng):
     before = dict(library.launches)
     out = twa.window_attention(*args, heads=2, ws=WS)
     assert out.shape == (1, 8, 8, 32) and library.launches == before
+
+
+# ------------------------------- K5 ------------------------------------------
+
+def tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """An fp32 value as the tensor cores read it for a tf32 operand: its low
+    13 mantissa bits dropped (toward zero)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def conv3x3_tf32_emulation(x, weight, bias=None, *, relu=True, passes=3):
+    """K5 (csrc/conv3x3.cu) in plain PyTorch: the implicit GEMM of the NHWC
+    input in K5's K order (tap by tap, channels inside a tap, each tap's
+    channels zero-padded to K5's stages of 32), each stage summed into
+    fresh fp32 partial sums 8 of K a step, adding a_lo b_hi, then a_hi b_lo,
+    then a_hi b_hi (hi = tf32(x), lo = x - hi read truncated to tf32), and
+    each stage's partial sums added to the running sums; then the bias and
+    the ReLU. passes=1 takes one TF32 product, a_hi b_hi."""
+    B, H, W, Cin = x.shape
+    Cout = weight.shape[0]
+    cp = -(-Cin // 32) * 32
+    xp = torch.nn.functional.pad(x, (0, cp - Cin, 1, 1, 1, 1))
+    a = torch.stack([xp[:, r:r + H, s:s + W] for r in range(3)
+                     for s in range(3)], -2).reshape(B * H * W, 9 * cp)
+    b = torch.nn.functional.pad(weight.permute(0, 2, 3, 1),
+                                (0, cp - Cin)).reshape(Cout, 9 * cp).T
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32_truncated(a - ah), tf32_truncated(b - bh)
+    acc = torch.zeros(B * H * W, Cout)
+    for k0 in range(0, 9 * cp, 32):
+        part = torch.zeros_like(acc)
+        for k1 in range(k0, k0 + 32, 8):
+            ks = slice(k1, k1 + 8)
+            if passes == 3:
+                part = part + al[:, ks] @ bh[ks]
+                part = part + ah[:, ks] @ bl[ks]
+            part = part + ah[:, ks] @ bh[ks]
+        acc = acc + part
+    if bias is not None:
+        acc = acc + bias
+    out = acc.reshape(B, H, W, Cout)
+    return torch.relu(out) if relu else out
+
+
+def _conv_inputs(rng, B, H, W, Cin, Cout):
+    """Inputs as the motion encoder gives them: a ReLU's output, and a
+    weight and bias at the scale of the layer's initialisation."""
+    bound = (9 * Cin) ** -0.5
+    x = np.maximum(rng.standard_normal((B, H, W, Cin)), 0)
+    w = rng.uniform(-bound, bound, (Cout, Cin, 3, 3))
+    b = rng.uniform(-bound, bound, Cout)
+    return x, w, b
+
+
+def _conv64(x, w, b=None):
+    """The fp64 convolution (x a numpy array or an fp64 tensor)."""
+    x = torch.as_tensor(x, dtype=torch.float64)
+    return torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2), T(w).double(),
+        None if b is None else T(b).double(), padding=1).permute(0, 2, 3, 1)
+
+
+# (B, H, W, Cin, Cout): conv's and convf2's widths (convc2's Cin and K)
+# at a cut batch and map; Cout = 126 leaves a ragged tile
+CONV_TF32_CASES = [(2, 8, 8, 256, 126), (1, 6, 10, 128, 64)]
+# K5 reads ~1e-6 from an fp64 convolution on the card at K = 2304, as
+# cuDNN's fp32 does (its outputs ~2): fp32 tolerance with 10x room
+CONV_FP32_TOL = 1e-5
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout", CONV_TF32_CASES)
+def test_conv3x3_3xtf32_holds_fp32_tolerance(B, H, W, Cin, Cout):
+    """K5's fp32 arithmetic in 3xTF32, emulated on the CPU in its order,
+    stays within fp32 tolerance of an fp64 convolution, as the plain fp32
+    version does."""
+    x, w, b = _conv_inputs(np.random.default_rng(Cin + Cout), B, H, W, Cin,
+                           Cout)
+    ref = torch.relu(_conv64(x, w, b))
+    xf, wf, bf = (T(a).float() for a in (x, w, b))
+    got = conv3x3_tf32_emulation(xf, wf, bf)
+    plain = tconv.conv3x3_relu_plain(xf, wf, bf)
+    torch.testing.assert_close(got.double(), ref, atol=CONV_FP32_TOL, rtol=0)
+    torch.testing.assert_close(plain.double(), ref, atol=CONV_FP32_TOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout", CONV_TF32_CASES)
+def test_conv3x3_input_grad_holds_fp32_tolerance(B, H, W, Cin, Cout):
+    """The backward's input gradient on K5 (the same convolution of the
+    output's gradient with the weight transposed and flipped, its Cout
+    channels padded to a multiple of 4), emulated, against autograd's
+    input gradient of the fp64 convolution."""
+    rng = np.random.default_rng(Cin * Cout)
+    x, w, _ = _conv_inputs(rng, B, H, W, Cin, Cout)
+    g = rng.standard_normal((B, H, W, Cout))
+    x64 = T(x).requires_grad_(True)
+    ref, = torch.autograd.grad(_conv64(x64, w), x64, T(g))
+    gp, wt = tconv.input_grad_operands(T(g).float(), T(w).float())
+    assert gp.shape[-1] % 4 == 0 and wt.shape == (Cin, gp.shape[-1], 3, 3)
+    got = conv3x3_tf32_emulation(gp, wt, relu=False)
+    torch.testing.assert_close(got.double(), ref, atol=CONV_FP32_TOL, rtol=0)
+
+
+def test_conv3x3_one_tf32_pass_misses_fp32_tolerance():
+    """Why K5 splits: one TF32 product (hi * hi) is off by far more than
+    the fp32 tolerance its 3xTF32 emulation holds."""
+    x, w, b = _conv_inputs(np.random.default_rng(0), *CONV_TF32_CASES[0])
+    ref = torch.relu(_conv64(x, w, b))
+    one = conv3x3_tf32_emulation(*(T(a).float() for a in (x, w, b)),
+                                 passes=1)
+    assert (one.double() - ref).abs().max().item() > 10 * CONV_FP32_TOL
+
+
+def test_conv3x3_wrapper_uses_plain_on_cpu(rng):
+    """On the CPU the wrapper is the plain version, `F.relu(Conv(x))` of
+    models/layers.py, bit for bit, and launches nothing."""
+    from stitchax_torch.models.layers import Conv
+    conv = Conv(16, 12, 3, padding=1)
+    x = T(rng.standard_normal((2, 5, 7, 16)).astype(np.float32))
+    before = dict(library.launches)
+    out = tconv.conv3x3_relu(x, conv.weight, conv.bias)
+    assert library.launches == before
+    assert torch.equal(out, torch.relu(conv(x)))

@@ -12,7 +12,9 @@ import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
+from stitchax_torch.ops.kernels import conv3x3 as tconv
 from stitchax_torch.ops.kernels import cost_lookup as tcl
 from stitchax_torch.ops.kernels import gsa_attention as tgsa
 from stitchax_torch.ops.kernels import library
@@ -161,8 +163,12 @@ def test_wrappers_count_launches(cuda):
     b = torch.zeros(49, 32, device=cuda)
     twa.window_attention(x.view(1, 4, 4, 32), x.view(1, 4, 4, 32),
                          x.view(1, 4, 4, 32), b, b, b[:1], heads=2, ws=7)
+    tconv.conv3x3_relu(x.view(1, 4, 4, 32), torch.zeros(8, 32, 3, 3,
+                                                         device=cuda),
+                       torch.zeros(8, device=cuda))
     assert library.launches == {"gsa_attention": 1, "cost_lookup": 1,
-                                "tps_grid": 0, "window_attention": 1}
+                                "tps_grid": 0, "window_attention": 1,
+                                "conv3x3": 1, "conv3x3_input_grad": 0}
     # no input needs a gradient: none of them went through autograd
     assert library.grad_launches == dict.fromkeys(library.launches, 0)
 
@@ -409,3 +415,157 @@ def test_window_autograd_function(cuda, fused, heads):
         lambda: twa.window_attention(*streams(), heads=heads, ws=ws),
         lambda: twa.window_attention_plain(*streams(), heads=heads, ws=ws),
         (qkv, qb, kb, vb), g_out, 2e-5)
+
+
+# ------------------------------- K5 ------------------------------------------
+
+# the motion encoder's three 3x3 convolutions (Cin, Cout): convc2, convf2,
+# conv
+CONV_LAYERS = [(256, 192), (128, 64), (256, 126)]
+# (B, H, W, Cin, Cout): ragged maps and pixel tiles, Cin under and across
+# the kernel's 32-channel stages, Cout ragged and odd
+CONV_EDGES = [(1, 5, 7, 4, 5), (2, 9, 13, 36, 126), (1, 1, 1, 8, 3),
+              (3, 17, 33, 100, 70), (1, 3, 130, 64, 65)]
+# K5 (3xTF32, each stage of 32 channels summed apart and added in fp32) and
+# the plain version (cuDNN in fp32, by FFT at some of these shapes) each
+# read 1e-6 to 3e-6 from an fp64 convolution on the card, at K = 2304 and
+# outputs up to ~2: K1's and K4's fp32 tolerance leaves 6x
+CONV_TOL = 2e-5
+
+
+def _conv_inputs(dev, B, H, W, Cin, Cout, seed=0):
+    """A ReLU's output, and a weight and bias at the scale of the layer's
+    initialisation, as the motion encoder gives them."""
+    g = torch.Generator().manual_seed(seed)
+    bound = (9 * Cin) ** -0.5
+    x = torch.randn(B, H, W, Cin, generator=g).relu()
+    w = (torch.rand(Cout, Cin, 3, 3, generator=g) * 2 - 1) * bound
+    b = (torch.rand(Cout, generator=g) * 2 - 1) * bound
+    return x.to(dev), w.to(dev), b.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Cin,Cout", CONV_LAYERS)
+def test_conv3x3_kernel_matches_plain(cuda, Cin, Cout):
+    x, w, b = _conv_inputs(cuda, 2, 64, 64, Cin, Cout)
+    got = tconv.conv3x3_relu(x, w, b)
+    want = tconv.conv3x3_relu_plain(x, w, b)
+    torch.testing.assert_close(got, want, atol=CONV_TOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,Cin,Cout", CONV_EDGES)
+def test_conv3x3_kernel_edges(cuda, B, H, W, Cin, Cout):
+    x, w, b = _conv_inputs(cuda, B, H, W, Cin, Cout, seed=1)
+    got = tconv.conv3x3_relu(x, w, b)
+    want = tconv.conv3x3_relu_plain(x.double(), w.double(), b.double())
+    torch.testing.assert_close(got.double(), want, atol=CONV_TOL, rtol=0)
+    # the input gradient's launch: no bias, no ReLU, Cout padded to 4s
+    gy = torch.randn(B, H, W, Cout, device=cuda)
+    x64 = x.double().requires_grad_(True)
+    y64 = F.conv2d(x64.permute(0, 3, 1, 2), w.double(), padding=1)
+    ref, = torch.autograd.grad(y64.permute(0, 2, 3, 1), x64, gy.double())
+    torch.testing.assert_close(tconv.input_grad(gy, w).double(), ref,
+                               atol=CONV_TOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_conv3x3_counts_one_launch_a_call(cuda):
+    x, w, b = _conv_inputs(cuda, 1, 8, 8, 16, 8)
+    library.reset_launches()
+    for n in (1, 2, 3):
+        tconv.conv3x3_relu(x, w, b)
+        assert library.launches["conv3x3"] == n
+    tconv.input_grad(torch.randn(1, 8, 8, 8, device=cuda), w)
+    assert library.launches["conv3x3_input_grad"] == 1
+    assert library.launches["conv3x3"] == 3
+    assert library.grad_launches == dict.fromkeys(library.launches, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Cin,Cout", CONV_LAYERS)
+def test_conv3x3_autograd_function(cuda, Cin, Cout):
+    x, w, b = (t.requires_grad_(True)
+               for t in _conv_inputs(cuda, 2, 64, 64, Cin, Cout, seed=2))
+    g = torch.Generator().manual_seed(3)
+    g_out = torch.randn(2, 64, 64, Cout, generator=g).to(cuda)
+    # K5's and cuDNN's outputs differ by ~1e-6, so their ReLU masks may
+    # differ where the convolution is that close to 0: no gradient there
+    with torch.no_grad():
+        pre = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1)
+    g_out = g_out * (pre.permute(0, 2, 3, 1).abs() > 1e-4)
+    before, before_grad = dict(library.launches), dict(library.grad_launches)
+    out, grads, ref, ref_grads = _grads_both(
+        lambda: tconv.conv3x3_relu(x, w, b),
+        lambda: tconv.conv3x3_relu_plain(x, w, b), (x, w, b), g_out)
+    # one forward, under autograd, and one input gradient: no forward
+    # recomputed in the backward
+    assert library.launches["conv3x3"] == before["conv3x3"] + 1
+    assert library.grad_launches["conv3x3"] == before_grad["conv3x3"] + 1
+    assert (library.launches["conv3x3_input_grad"]
+            == before["conv3x3_input_grad"] + 1)
+    assert out.grad_fn is not None
+    torch.testing.assert_close(out, ref, atol=CONV_TOL, rtol=0)
+    # the weight's and the bias's gradients are convolution_backward on
+    # the same inputs; the input's is K5 against cuDNN, both fp32-accurate
+    for a, r in zip(grads, ref_grads):
+        torch.testing.assert_close(a, r, atol=1e-5 * r.abs().max().item(),
+                                   rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Cin,Cout", [(256, 192), (256, 126)])
+def test_conv3x3_backward_takes_no_fft(cuda, Cin, Cout):
+    """cuDNN takes the input gradient of these two layers by FFT at the
+    train step's batch: the Function's backward runs it on K5."""
+    from torch.profiler import ProfilerActivity, profile
+    x, w, b = (t.requires_grad_(True)
+               for t in _conv_inputs(cuda, 8, 64, 64, Cin, Cout, seed=4))
+    out = tconv.conv3x3_relu(x, w, b)
+    g_out = torch.randn_like(out)
+    torch.autograd.grad(out, (x, w, b), g_out, retain_graph=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, (x, w, b), g_out)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("conv3x3_tf32_kernel" in n for n in names) == 1, names
+    assert not [n for n in names if "fft" in n.lower() or "cf32" in n]
+
+
+@pytest.mark.gpu
+def test_conv3x3_kernel_refuses(cuda):
+    x, w, b = _conv_inputs(cuda, 1, 8, 8, 16, 8)
+    with pytest.raises(TypeError):
+        tconv.conv3x3_relu(x.bfloat16(), w.bfloat16(), b.bfloat16())
+    with pytest.raises(ValueError):             # not contiguous
+        tconv.conv3x3_relu(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError):             # not 16-byte aligned
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        tconv.conv3x3_relu(buf[1:].view(x.shape), w, b)
+    x6, w6, b6 = _conv_inputs(cuda, 1, 8, 8, 6, 8)
+    with pytest.raises(ValueError):             # Cin not a multiple of 4
+        tconv.conv3x3_relu(x6, w6, b6)
+
+
+@pytest.mark.gpu
+def test_motion_encoder_takes_k5_in_fp32_only(cuda):
+    """BasicMotionEncoder's three 3x3 convolutions run on K5 in fp32 (the
+    1x1 and 7x7 ones on cuDNN), and all five on cuDNN in bf16."""
+    from stitchax_torch.models.flowformer import BasicMotionEncoder
+    g = torch.Generator().manual_seed(5)
+    enc = BasicMotionEncoder(452).to(cuda)
+    flow = torch.randn(2, 16, 16, 2, generator=g).to(cuda)
+    corr = torch.randn(2, 16, 16, 452, generator=g).to(cuda)
+    library.reset_launches()
+    with torch.no_grad():
+        got = enc(flow, corr)
+        assert library.launches["conv3x3"] == 3
+        cor = F.relu(enc.convc2(F.relu(enc.convc1(corr))))
+        flo = F.relu(enc.convf2(F.relu(enc.convf1(flow))))
+        want = torch.cat([F.relu(enc.conv(torch.cat([cor, flo], -1))),
+                          flow], -1)
+        torch.testing.assert_close(got, want, atol=CONV_TOL, rtol=0)
+        enc.bfloat16()(flow.bfloat16(), corr.bfloat16())
+    assert library.launches["conv3x3"] == 3
