@@ -11,7 +11,10 @@ skips (`ConvProjection`) produce a tanh image. NHWC throughout; modules
 carry stitchax's names so `convert.load_jax_params` maps its param tree.
 Attention is plain matmul + softmax (logits and softmax in fp32, then the
 values' dtype), as stitchax's einsum is. Every LayerNorm has eps 1e-6;
-GELU is the exact (erf) form; leaky ReLU slope 0.01.
+GELU is the exact (erf) form; leaky ReLU slope 0.01. With the tracer on,
+a forward records the spans `transref.encoder` (`Tenc`, the RefPA calls
+inside it), `transref.refpa` (one a RefPA call: three a forward, stages
+1-3) and `transref.decoder` (`Tdec` and `ConvProjection`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.deform import deform_conv2d_b
+from ..utils.tracing import span
 from .layers import Conv
 
 EMBED_DIMS = (64, 128, 320, 512)
@@ -239,7 +243,8 @@ class RefPA(nn.Module):
         self.ph = PH(channels)
 
     def forward(self, feat, ref):
-        return self.ph(feat, self.pa(feat, ref))
+        with span("transref.refpa", device=feat.device):
+            return self.ph(feat, self.pa(feat, ref))
 
 
 # ------------------------------ encoder -------------------------------------
@@ -384,6 +389,8 @@ class TransRefBase(nn.Module):
 
     def forward(self, detail, mask, reference):
         inv_mask = (1.0 - mask).expand_as(detail)
-        feats = self.tenc(torch.cat([detail, inv_mask], -1), reference)
-        tail = self.convtail(feats, self.tdec(feats))
+        with span("transref.encoder", device=detail.device):
+            feats = self.tenc(torch.cat([detail, inv_mask], -1), reference)
+        with span("transref.decoder", device=detail.device):
+            tail = self.convtail(feats, self.tdec(feats))
         return torch.tanh(self.clean(tail))

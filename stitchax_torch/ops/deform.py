@@ -9,11 +9,15 @@ offsets stored as 2*K*K channels ordered (dy, dx) per tap. A tap whose
 corner falls outside the map reads zero. stitchax computes this outside
 any Pallas kernel, so here it is plain PyTorch: four gathers and a
 `torch.matmul`. Arithmetic runs in the input's dtype, as stitchax's does.
+With the tracer on, each call bumps `deform.calls` by one and
+`deform.taps_gathered` by B*H*W*K*K*C, the elements of the gathered taps.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils.tracing import count
 
 
 def _bilinear_gather_zero(img: torch.Tensor, x: torch.Tensor,
@@ -59,6 +63,8 @@ def deform_conv2d_b(x: torch.Tensor, offsets: torch.Tensor,
     sy = (ys[..., None] + ti) + off[..., 0]
     sx = (xs[..., None] + tj) + off[..., 1]
     taps = _bilinear_gather_zero(x, sx, sy)          # (B, H, W, K*K, C)
+    count("deform.calls")
+    count("deform.taps_gathered", B * H * W * K * K * C)
     out = taps.reshape(B, H * W, K * K * C) @ weights
     return out.reshape(B, H, W, -1)
 

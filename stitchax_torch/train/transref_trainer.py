@@ -97,7 +97,10 @@ def make_transref_train_step(model: nn.Module, vgg: Callable, tx: Adam,
     metrics): gt / ref in [-1, 1] NHWC, mask (B, S, S, 1); metrics total /
     l1 / perceptual / style, 0-dim tensors on the device. With a `timings`
     dict the step adds ms of its forward, loss (the VGG's two forwards),
-    backward and Adam (synchronizing between them)."""
+    backward and Adam (synchronizing between them). The step forces no
+    host-device sync: with the tracer on it is the root span
+    `transref.step` (root = the state's step) over `transref.forward`,
+    `.loss`, `.backward` and `.adam`."""
 
     def loss_and_grads(state: TrainState, gt, ref, mask,
                        timings: Optional[dict] = None, world=None):
@@ -133,8 +136,9 @@ def make_transref_train_step(model: nn.Module, vgg: Callable, tx: Adam,
 
     def train_step(state: TrainState, gt, ref, mask,
                    timings: Optional[dict] = None):
-        metrics, grads = loss_and_grads(state, gt, ref, mask, timings)
-        return apply_gradients(state, metrics, grads, timings)
+        with span("transref.step", root=state.step):
+            metrics, grads = loss_and_grads(state, gt, ref, mask, timings)
+            return apply_gradients(state, metrics, grads, timings)
 
     train_step.loss_and_grads = loss_and_grads
     train_step.apply_gradients = apply_gradients

@@ -396,8 +396,8 @@ def test_transref_step_timings_keep_their_keys():
     assert set(timings) == {"forward_ms", "loss_ms", "backward_ms",
                             "adam_ms"}
     assert [s["name"] for s in snap["spans"]] == [
-        "transref.forward", "transref.loss", "transref.backward",
-        "transref.adam"]
+        "transref.step", "transref.forward", "transref.loss",
+        "transref.backward", "transref.adam"]
 
 
 def test_sd_steps_timings_keep_their_keys():
