@@ -39,7 +39,10 @@ Phases, each printing one JSON line before the next begins:
                          beside their bounds and library yardsticks (K1's,
                          K4's and K5's at fp32 accuracy on the tensor cores,
                          3xTF32, and at the CUDA cores' fp32 rate; K5's
-                         yardstick F.conv2d, cuDNN in fp32)
+                         yardstick F.conv2d, cuDNN in fp32); K6 (the
+                         batch's PSNR / SSIM scores) against its plain
+                         version and the numpy scoring it replaced, both
+                         timed on the host
   stitch_vs_stitchax     the fast_cv_g8 stitch of demo_data/demo1 and demo2
                          in fp32 on the card against stitchax's own outputs
                          (its jitted Stitcher on the CPU), committed in
@@ -227,6 +230,9 @@ TOL = {
     # differences (a few fp32 ulps of the [0, 1] map; an H100 read 3.6e-7
     # with the precise logf, PERF.md)
     "tps_grid": 5e-6,
+    # K6's finished PSNR / SSIM against its plain version's: PSNR
+    # bit-equal, SSIM by the order of the interior's float64 sum (~1e-16)
+    "pair_scores": 1e-12,
 }
 # stitch in fp32 on the card (TF32 off) vs on the CPU, with the trained
 # weights: about 10x or more of what an H100 read (PERF.md section 2)
@@ -580,7 +586,7 @@ EVAL_CONV_CALLS = 2 * DECODER_ITERS
 EXPECT_EVAL_LAUNCHES = {"gsa_attention": 18, "cost_lookup": 24,
                         "window_attention": 18, "tps_grid": 0,
                         "conv3x3": len(CONV_LAYERS) * EVAL_CONV_CALLS,
-                        "conv3x3_input_grad": 0}
+                        "conv3x3_input_grad": 0, "pair_scores": 1}
 EVAL_REPORT_KEYS = ("avg_psnr", "avg_ssim", "easy_psnr", "mid_psnr",
                     "hard_psnr", "easy_ssim", "mid_ssim", "hard_ssim",
                     "num_pairs")
@@ -921,11 +927,64 @@ def kernel_rows(tps_inputs, launches):
     return rows, detail
 
 
+def pair_scores_row():
+    """K6 at the evaluation's batch (12 pairs at 512^2, the warp output's
+    channel slice, coverage partly below 1): its finished PSNR / SSIM
+    against its plain version's (on the CPU), its time by events and on
+    the device beside its bytes bound, and on the host the plain version's
+    and the numpy scoring's it replaced (each with its download)."""
+    import torch
+
+    from stitchax_torch.evaluate import masked_pairs
+    from stitchax_torch.metrics import psnr_batch, ssim_batch
+    from stitchax_torch.ops.kernels import pair_scores as ps
+
+    B, H, W = EVAL_BATCH, 512, 512
+    g = torch.Generator().manual_seed(SEED + 2)
+    img1 = torch.floor(torch.rand(B, H, W, 3, generator=g) * 256)
+    cover = (torch.rand(B, H, W, 1, generator=g) > 0.2).float()
+    out = torch.cat([img1 + torch.randn(B, H, W, 3, generator=g) * 12,
+                     cover.expand(B, H, W, 3)], -1).cuda()
+    img1 = img1.cuda()
+    warped, valid = out[..., 0:3], out[..., 3:6].mean(-1, keepdim=True)
+    k6 = lambda: ps.pair_scores(img1, warped, valid)
+    got = ps.psnr_ssim(k6().cpu().numpy(), H, W)
+
+    def host(fn, iters=3):
+        fn()
+        t = time.perf_counter()
+        for _ in range(iters):
+            r = fn()
+        return (time.perf_counter() - t) * 1e3 / iters, r
+
+    plain_ms, plain = host(lambda: ps.psnr_ssim(ps.pair_scores_plain(
+        img1.cpu(), warped.cpu(), valid.cpu()).numpy(), H, W))
+
+    def numpy_path():
+        a, b = masked_pairs(img1.cpu().numpy(), warped.cpu().numpy(),
+                            valid.cpu().numpy())
+        return psnr_batch(a, b, 255.0), ssim_batch(a, b, 7, 255.0)
+
+    numpy_ms, ref = host(numpy_path)
+    err = max(float(np.max(np.abs(x - y), initial=0.0))
+              for x, y in zip(got + got, plain + ref))
+    bound = B * H * W * 28 / HBM_BPS * 1e3
+    return {"kernel": "pair_scores", "B": B, "H": H, "W": W,
+            "dtype": "float32", "max_abs_err": err,
+            "psnr_bit_equal_plain": bool(np.array_equal(got[0], plain[0])),
+            "psnr_bit_equal_numpy": bool(np.array_equal(got[0], ref[0])),
+            "tol": TOL["pair_scores"], "ms": cuda_time(k6, iters=20),
+            "device_ms": device_ms(k6, iters=20), "plain_host_ms": plain_ms,
+            "numpy_host_ms": numpy_ms, "bound_ms": bound,
+            "bound_by": "bytes", "launches_per_batch": 1}
+
+
 def eval_kernel_rows():
     """K1, K3, K4 and K5 against their plain versions on the card at the
     evaluation's shapes (fp32, batch 12), timed beside their bounds at the
-    fp32 peak and their library yardsticks. Returns {kernel: summary per
-    evaluation batch} and one entry per call shape."""
+    fp32 peak and their library yardsticks, and K6 (`pair_scores_row`).
+    Returns {kernel: summary per evaluation batch} and one entry per call
+    shape."""
     import torch
     import torch.nn.functional as F
 
@@ -1080,6 +1139,9 @@ def eval_kernel_rows():
         del x, w, b, xn
     for r in rows.values():
         r["bound_by"] = max(r["bound_by"], key=r["bound_by"].get)
+    k6 = pair_scores_row()
+    rows["pair_scores"] = k6
+    detail.append({"phase_shapes": "evaluation", **k6, "calls": 1})
     torch.cuda.empty_cache()
     return rows, detail
 
@@ -2032,7 +2094,7 @@ EXPECT_TRAIN_LAUNCHES = {
     "gsa_attention": 18, "cost_lookup": 24, "window_attention": 18,
     "tps_grid": 0,
     "conv3x3": len(CONV_LAYERS) * FLOW_CALLS_PER_STEP * DECODER_ITERS,
-    "conv3x3_input_grad": len(CONV_LAYERS) * DECODER_ITERS}
+    "conv3x3_input_grad": len(CONV_LAYERS) * DECODER_ITERS, "pair_scores": 0}
 # of those, the forward under autograd's (the kernels' autograd Functions,
 # library.grad_launches): the calls of the tables above, once each. The
 # per-step forward / backward ms are weighted by these tables, so the step
@@ -2042,7 +2104,7 @@ EXPECT_TRAIN_GRAD_LAUNCHES = {
     "cost_lookup": DECODER_ITERS,
     "window_attention": sum(c[-1] for c in TRAIN_WINDOW_CALLS),
     "tps_grid": 0, "conv3x3": len(CONV_LAYERS) * DECODER_ITERS,
-    "conv3x3_input_grad": 0}
+    "conv3x3_input_grad": 0, "pair_scores": 0}
 # the autograd Function's gradients against the plain version's autograd
 # on the same inputs: both differentiate the plain version at the same
 # saved inputs, so they differ only by the order of atomic adds (K3's
@@ -4240,6 +4302,11 @@ def main() -> int:
                  "launches_by_config": {c: n["conv3x3"]
                                         for c, n in launches.items()},
                  "evaluation": eval_rows["conv3x3"]})
+    # K6 scores the evaluation only
+    rows.append({"name": "pair_scores", "route": "cuda",
+                 "source": "stitchax_torch/csrc/pair_scores.cu",
+                 "replaces": None, "launches": 0,
+                 "evaluation": eval_rows["pair_scores"]})
 
     stitch_vs_cpu_phase(img1, img2)
     stitch_vs_cpu_default_phase(img1, img2)

@@ -115,7 +115,9 @@ def bucket_report(psnr_list, ssim_list) -> dict:
 def masked_pairs(img1: np.ndarray, warped: np.ndarray, valid: np.ndarray):
     """uint8 img1 and warped img2 inside the fully covered overlap, as
     stitchax forms them: clip and truncate, and the coverage truncated to
-    uint8 (1 only where it is exactly 1)."""
+    uint8 (1 only where it is exactly 1). The evaluation forms and scores
+    them on the device (`ops.kernels.pair_scores`); this numpy form is what
+    its tests hold it to."""
     i1 = np.clip(img1, 0, 255).astype(np.uint8)
     w = np.clip(warped, 0, 255).astype(np.uint8)
     m = valid.astype(np.uint8)
@@ -126,15 +128,19 @@ def validate_with_model(cfg, loader, models, align_cfg, eval_step=None,
                         per_pair: Optional[list] = None,
                         world=None) -> Optional[dict]:
     """PSNR/SSIM over the loader's batches and the bucketed report.
-    `models.device` takes the batches. With `per_pair`, each pair's
-    (name, psnr, ssim) is appended to it. With a `world` of ranks, every
-    rank passes the same batches and aligns its block of each; rank 0
-    returns the report, the others None."""
+    `models.device` takes the batches and scores them where the alignment
+    left them (`ops.kernels.pair_scores`: K6 on a card, its plain version
+    on the CPU; `masked_pairs` then `metrics.psnr_batch` / `ssim_batch`'s
+    numbers); only the (B, 4) scores come back to the host. With
+    `per_pair`, each pair's (name, psnr, ssim) is appended to it. With a
+    `world` of ranks, every rank passes the same batches and aligns its
+    block of each; rank 0 scores the gathered outputs and returns the
+    report, the others None."""
     import torch
 
-    from .metrics import psnr_batch, ssim_batch
+    from .ops.kernels.pair_scores import pair_scores, psnr_ssim
     from .parallel import make_parallel_eval_step, pad_to_world
-    from .utils.tracing import count_sync, span
+    from .utils.tracing import count, count_sync, span
 
     if eval_step is None:
         eval_step = make_eval_step(models, align_cfg)
@@ -158,18 +164,17 @@ def validate_with_model(cfg, loader, models, align_cfg, eval_step=None,
                 warped, valid = eval_step(img1, img2)
             if not main:
                 continue
-            with span("eval.download"):
-                count_sync(warped.device, 2)  # two device-to-host copies
-                warped = warped[:n].cpu().numpy()
-                valid = valid[:n].cpu().numpy()
             with span("eval.score"):
-                a, b = masked_pairs(batch["image1"], warped, valid)
-                p, s = psnr_batch(a, b, 255.0), ssim_batch(a, b, 7, 255.0)
+                count("score.pairs", n)
+                scores = pair_scores(img1[:n], warped[:n], valid[:n])
+            with span("eval.download"):
+                count_sync(scores.device, 1)  # one device-to-host copy
+                p, s = psnr_ssim(scores.cpu().numpy(), *img1.shape[1:3])
         psnr_list += list(p)
         ssim_list += list(s)
         if per_pair is not None:
             per_pair += list(zip(batch["name"], p.tolist(), s.tolist()))
-        seen += a.shape[0]
+        seen += n
         print(f"evaluated {seen} pairs; last psnr "
               f"{psnr_list[-1]:.4f} ssim {ssim_list[-1]:.4f}", flush=True)
     return bucket_report(psnr_list, ssim_list) if main else None

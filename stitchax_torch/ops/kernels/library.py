@@ -35,7 +35,8 @@ FLOAT32, BFLOAT16 = 0, 1
 # launches of each kernel, bumped by its wrapper right after a launch
 launches: Dict[str, int] = {"gsa_attention": 0, "cost_lookup": 0,
                             "tps_grid": 0, "window_attention": 0,
-                            "conv3x3": 0, "conv3x3_input_grad": 0}
+                            "conv3x3": 0, "conv3x3_input_grad": 0,
+                            "pair_scores": 0}
 # of those, the launches made by an autograd Function's forward (under grad)
 grad_launches: Dict[str, int] = dict(launches)
 # K3's launches by lookup radius (r = 4 in the decoder, r = 7 for the MAE
@@ -133,8 +134,8 @@ def load_library() -> ctypes.CDLL:
         return _lib
     ensure_built()
     lib = ctypes.CDLL(str(library_path()))
-    vp, ci, cf, cl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_longlong)
+    vp, ci, cf, cl, cd = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_longlong, ctypes.c_double)
     lib.stx_gsa_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                       ci, vp]
     lib.stx_cost_lookup.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
@@ -143,8 +144,11 @@ def load_library() -> ctypes.CDLL:
     lib.stx_window_attention.argtypes = [vp] * 7 + [ci] * 6 + [cl] * 5 + [
         ci, vp]
     lib.stx_conv3x3.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+    lib.stx_pair_scores.argtypes = ([vp] + [cl] * 4) * 2 + [vp] + [cl] * 3 \
+        + [ci] * 3 + [cd] * 3 + [vp] * 4
     for fn in (lib.stx_gsa_attention, lib.stx_cost_lookup, lib.stx_tps_grid,
-               lib.stx_window_attention, lib.stx_conv3x3):
+               lib.stx_window_attention, lib.stx_conv3x3,
+               lib.stx_pair_scores):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -18,9 +18,11 @@ from stitchax_torch.ops.kernels import conv3x3 as tconv
 from stitchax_torch.ops.kernels import cost_lookup as tcl
 from stitchax_torch.ops.kernels import gsa_attention as tgsa
 from stitchax_torch.ops.kernels import library
+from stitchax_torch.ops.kernels import pair_scores as tscore
 from stitchax_torch.ops.kernels import tps_grid as ttps
 from stitchax_torch.ops.kernels import window_attention as twa
 from stitchax_torch.utils.precision import fp32_exact
+import test_torch_pair_scores as tps
 
 GSA_CASES = [(2, 100, 16, 64, 4),    # d = 16, ragged N
              (1, 64, 9, 64, 2),      # d = 32
@@ -168,7 +170,8 @@ def test_wrappers_count_launches(cuda):
                        torch.zeros(8, device=cuda))
     assert library.launches == {"gsa_attention": 1, "cost_lookup": 1,
                                 "tps_grid": 0, "window_attention": 1,
-                                "conv3x3": 1, "conv3x3_input_grad": 0}
+                                "conv3x3": 1, "conv3x3_input_grad": 0,
+                                "pair_scores": 0}
     # no input needs a gradient: none of them went through autograd
     assert library.grad_launches == dict.fromkeys(library.launches, 0)
 
@@ -569,3 +572,49 @@ def test_motion_encoder_takes_k5_in_fp32_only(cuda):
         torch.testing.assert_close(got, want, atol=CONV_TOL, rtol=0)
         enc.bfloat16()(flow.bfloat16(), corr.bfloat16())
     assert library.launches["conv3x3"] == 3
+
+
+# K6 (the evaluation's per-pair scores): the CPU tests' cases
+# (tests/test_torch_pair_scores.py), on the card
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,H,W", tps.CASES)
+def test_pair_scores_kernel_matches_plain_and_numpy(cuda, name, B, H, W):
+    args = tps.make_case(name, B, H, W)
+    library.reset_launches()
+    got = tscore.pair_scores(*(t.to(cuda) for t in args))
+    assert library.launches["pair_scores"] == 1
+    plain = tscore.pair_scores_plain(*args)
+    # the squared error is an exact integer; the SSIM sums differ only by
+    # their order of summation
+    assert torch.equal(got[:, 0].cpu(), plain[:, 0])
+    torch.testing.assert_close(got[:, 1:].cpu(), plain[:, 1:], rtol=1e-14,
+                               atol=0)
+    scores = tscore.psnr_ssim(got.cpu().numpy(), H, W)
+    tps.assert_scores_match(scores, tscore.psnr_ssim(plain.numpy(), H, W))
+    tps.assert_scores_match(scores, tps.numpy_scores(*args))
+
+
+@pytest.mark.gpu
+def test_pair_scores_kernel_repeats_bit_equal(cuda):
+    """The evaluation's batch (12 pairs at 512^2, the warp output's channel
+    slice): two launches give the same bits, and one launch a call."""
+    args = [t.to(cuda) for t in tps.make_case("channel_slice", 12, 512,
+                                              512, seed=3)]
+    library.reset_launches()
+    first = tscore.pair_scores(*args)
+    second = tscore.pair_scores(*args)
+    assert library.launches["pair_scores"] == 2
+    assert torch.equal(first, second)
+    tps.assert_scores_match(
+        tscore.psnr_ssim(first.cpu().numpy(), 512, 512),
+        tps.numpy_scores(*(t.cpu() for t in args)))
+
+
+@pytest.mark.gpu
+def test_pair_scores_kernel_refuses(cuda):
+    img1, warped, valid = (t.to(cuda) for t in tps.make_case("random", 1,
+                                                             16, 16))
+    with pytest.raises(TypeError):
+        tscore.pair_scores(img1.double(), warped.double(), valid.double())
+    with pytest.raises(ValueError):             # one tensor on the CPU
+        tscore.pair_scores(img1, warped.cpu(), valid)

@@ -43,10 +43,11 @@ SIZE = 128
 # corners, DLT solve, the normalising matrix and its inverse, the warp's two
 # grids and the clip (one parameter group); the evaluation's two uploads,
 # the same homography work (the inverse homography and its normalisation
-# too), the two warps' four grids and the two downloads. They are counted
+# too), the two warps' four grids and the one download of the batch's
+# scores (the pairs are scored on the device). They are counted
 # on a CUDA device only; the tests that count them here on the CPU count
 # the CPU's sites as the card's (`cpu_counts_syncs`).
-TRAIN_SYNCS, EVAL_SYNCS = 7, 15
+TRAIN_SYNCS, EVAL_SYNCS = 7, 14
 
 
 @pytest.fixture(autouse=True)
@@ -232,7 +233,7 @@ def test_eval_spans_nest_under_the_batch(models):
         assert r["root"] == r["id"] and r["parent"] is None
         kids = [s for s in snap["spans"] if s["parent"] == r["id"]]
         assert [s["name"] for s in kids] == [
-            "eval.upload", "eval.align", "eval.download", "eval.score"]
+            "eval.upload", "eval.align", "eval.score", "eval.download"]
         align = [s for s in snap["spans"] if s["parent"] == kids[1]["id"]]
         assert [s["name"] for s in align] == [
             "align.homography", "align.flow", "align.flow"]
@@ -240,6 +241,11 @@ def test_eval_spans_nest_under_the_batch(models):
                if s["root"] == r["root"]]
         assert len(enc) == 4
         assert {ids[s["parent"]]["name"] for s in enc} == {"align.flow"}
+    # every pair of each batch scored, counted under `eval.score`
+    assert trace_cell.counter_per_root(snap, "eval.batch",
+                                       "score.pairs") == [2, 2]
+    assert {ids[c["span"]]["name"] for c in snap["counts"]
+            if c["name"] == "score.pairs"} == {"eval.score"}
 
 
 def test_buffer_keeps_the_newest_and_counts_what_it_dropped():
@@ -306,8 +312,9 @@ def test_host_syncs_are_not_counted_on_the_cpu(train, models):
     tracing.count_sync(None)
     tracing.count_sync("cuda:0", 2)           # names the card: counted
     snap = tracing.snapshot()
-    assert snap["counters"] == {"host_syncs": 2}
-    assert [c["n"] for c in snap["counts"]] == [2]
+    assert snap["counters"] == {"host_syncs": 2, "score.pairs": 2}
+    assert [c["n"] for c in snap["counts"]
+            if c["name"] == "host_syncs"] == [2]
 
 
 def test_host_syncs_count_one_clip_per_parameter_group(cpu_counts_syncs):

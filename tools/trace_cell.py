@@ -26,7 +26,9 @@ each batch's or step's root span holds):
 
 - align_device_ms.eval: device ms of `eval.align` (the alignment step).
 - motion_encoder_ms.eval: summed device ms of `flow.motion_encoder`.
-- score_ms.eval: host ms of `eval.score` (PSNR / SSIM on the host).
+- score_ms.eval: host ms of `eval.score`: the launch of the batch's
+  PSNR / SSIM scorer (K6) on a card, not its device time (the scores'
+  copy to the host and the host's finish are `eval.download`).
 - host_syncs.eval: the `host_syncs` counter's increase.
 - forward_device_ms.train: device ms of `train.forward` +
   `train.backward_flow` + `train.loss`.
