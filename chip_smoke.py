@@ -92,7 +92,7 @@ Phases, each printing one JSON line before the next begins:
                          committed split (checkpoints in a temporary
                          directory outside the repository), --resume from
                          step 2, --remat, final_ckpt.npz stitching a demo
-                         pair, and a warm step's split
+                         pair
   transref_train_vs_stitchax
                          one fp32 TransRef train step (TF32 off) from the
                          committed TransRef checkpoint with a seeded VGG on
@@ -106,7 +106,7 @@ Phases, each printing one JSON line before the next begins:
                          committed split (in a temporary directory outside
                          the repository): s per step, peak memory, its
                          export stitching demo1 through the default
-                         configuration, and a warm step's split
+                         configuration
   sd_train_vs_stitchax   one fp32 diffusion step and one VAE step (TF32
                          off) from results/sd_ckpt_r05.pt at 128^2, batch
                          8, on demo crops with stitchax's t and eps,
@@ -151,7 +151,9 @@ Phases, each printing one JSON line before the next begins:
 
 Then the kernel table (one JSON object), the nvidia-smi line, and the final
 `{"ok": true, "device": ...}` line. Any failed phase exits non-zero without
-the final line. Imports nothing of JAX or of the JAX package.
+the final line. Imports nothing of JAX or of the JAX package. The readings
+against stitchax's committed outputs are held_to_stitchax.py's, which the
+CPU tests share.
 
     python3 chip_smoke.py --profile [TRACE.json] [--config NAME]
 
@@ -176,6 +178,8 @@ import sys
 import time
 
 import numpy as np
+
+import held_to_stitchax as held
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = "results/ckpt_r05_bf16.npz"
@@ -1271,11 +1275,6 @@ def stitch_phase(img1, img2, config=FAST):
     return launches, tps_inputs
 
 
-def _psnr(a, b) -> float:
-    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
-    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
-
-
 def _fp32_stitches(img1, img2, config):
     """The configuration's stitch in fp32 on the card (TF32 off) and on the
     CPU, from one set of weights. Returns (card, cpu, card_s, cpu_s)."""
@@ -1329,15 +1328,16 @@ def stitch_vs_cpu_default_phase(img1, img2):
         raise RuntimeError(f"card and CPU canvases differ: {res}")
     lm = np.concatenate([np.abs(g[k] - c[k]).ravel()
                          for k in ("learned_mask1", "learned_mask2")])
-    res.update(composition_psnr_db=_psnr(g["composition"], c["composition"]),
+    res.update(composition_psnr_db=held.psnr(g["composition"],
+                                             c["composition"]),
                learned_mask_max_abs=float(lm.max()),
                learned_mask_mean_abs=float(lm.mean()),
                learned_mask_moved_share=float(np.mean(lm > 1e-2)),
                canvas_mask_flip_share=float(np.mean(np.concatenate([
                    np.abs(g[k] - c[k]).ravel() > 1e-3
                    for k in ("mask1", "mask2")]))),
-               blend_psnr_db=_psnr(g["new_blend_image"],
-                                   c["new_blend_image"]),
+               blend_psnr_db=held.psnr(g["new_blend_image"],
+                                       c["new_blend_image"]),
                flow_max_px=float(np.abs(g["flow"] - c["flow"]).max()),
                control_valid=[int(g["control_valid"].sum()),
                               int(c["control_valid"].sum())])
@@ -1357,13 +1357,9 @@ def stitch_vs_cpu_phase(img1, img2):
                                          - c["canvas_box"]).max()),
            "true_hw": [g["true_hw"].tolist(), c["true_hw"].tolist()]}
     res["blend_psnr_db"] = (
-        _psnr(g["new_blend_image"], c["new_blend_image"])
+        held.psnr(g["new_blend_image"], c["new_blend_image"])
         if g["true_hw"].tolist() == c["true_hw"].tolist() else float("-inf"))
     _check(res, STITCH_TOL, "stitch_vs_cpu")
-
-
-def _u8(x):
-    return np.rint(np.clip(x, 0, 255)).astype(np.uint8)
 
 
 def stitch_vs_stitchax_phase():
@@ -1383,7 +1379,7 @@ def stitch_vs_stitchax_phase():
     fp32_exact()
     st = Stitcher(build_models(torch.float32, "cuda", FAST), device="cuda",
                   config=FAST)
-    worst, pairs = {}, {}
+    pairs = {}
     with np.load(path) as data:
         for name in DEMO_PAIRS:
             ref = {k.split("/", 1)[1]: data[k] for k in data.files
@@ -1391,36 +1387,10 @@ def stitch_vs_stitchax_phase():
             out = st.stitch(ref["img1"].astype(np.float32),
                             ref["img2"].astype(np.float32))
             check_finite(out)
-            th, tw = ref["warp2"].shape[:2]
-            if (out["canvas_hw"].tolist() != ref["canvas_hw"].tolist()
-                    or out["true_hw"].tolist() != [th, tw]):
-                raise RuntimeError(f"{name}: canvas {out['canvas_hw']} / "
-                                   f"{out['true_hw']}, stitchax "
-                                   f"{ref['canvas_hw']} / {[th, tw]}")
-            r = {"H_max_abs": float(np.abs(out["H"] - ref["H"]).max()),
-                 "flow_max_px": float(np.abs(out["flow"]
-                                             - ref["flow"]).max()),
-                 "canvas_box_px": float(np.abs(out["canvas_box"]
-                                               - ref["canvas_box"]).max()),
-                 "control_valid_moved": int((out["control_valid"]
-                                             != ref["control_valid"]).sum()),
-                 "control_dst_max_px": float(np.abs(
-                     out["control_dst"] - ref["control_dst"]).max()),
-                 "mask1_moved_px": int((out["mask1"]
-                                        != ref["mask1"][:th, :tw]).sum())}
-            for key, ours in (("warp2", "output2"),
-                              ("ave_fusion", "new_blend_image")):
-                a = _u8(out[ours])
-                d = np.abs(a.astype(int) - ref[key].astype(int))
-                r[f"{key}_psnr_db"] = _psnr(a, ref[key])
-                r[f"{key}_max_level"] = int(d.max())
-                r[f"{key}_px_off_gt1"] = int((d > 1).sum())
-            pairs[name] = r
-            for k, v in r.items():
-                worse = min if k.endswith("_db") else max
-                worst[k] = worse(worst.get(k, v), v)
+            pairs[name] = held.stitch_readings(out, ref)
     res = {"phase": "stitch_vs_stitchax", "config": FAST, "dtype": "float32",
-           "reference": REFERENCE, "pairs": pairs, **worst}
+           "reference": REFERENCE, "pairs": pairs,
+           **held.worst(pairs.values())}
     _check(res, STITCHAX_TOL, "stitch_vs_stitchax")
 
 
@@ -1430,72 +1400,41 @@ def stitch_vs_stitchax_bf16_phase():
     jitted bf16 stitch of the same decoded pairs on the CPU (BF16_REFERENCE,
     the inputs from REFERENCE). Hard thresholds (mask1's erosion, the
     control points' validity; ROADMAP C1 / C5) are recorded, not gated:
-    the PSNRs gate what they move."""
+    the PSNRs gate what they move, and the control points' targets are held
+    where both sides mark them valid."""
     import torch
 
     from stitchax_torch.run.stitcher import Stitcher
 
     st = Stitcher(build_models(torch.bfloat16, "cuda", FAST), device="cuda",
                   config=FAST)
-    worst, pairs, card = {}, {}, {}
-    with np.load(os.path.join(REPO, REFERENCE)) as inputs, \
-            np.load(os.path.join(REPO, BF16_REFERENCE)) as data:
-        for name in DEMO_PAIRS:
-            ref = {k.split("/", 1)[1]: data[k] for k in data.files
-                   if k.startswith(name + "/")}
-            out = st.stitch(inputs[f"{name}/img1"].astype(np.float32),
-                            inputs[f"{name}/img2"].astype(np.float32))
-            check_finite(out)
-            card[name] = {k: out[k] for k in ("H", "flow")}
-            th, tw = ref["warp2"].shape[:2]
-            if (out["canvas_hw"].tolist() != ref["canvas_hw"].tolist()
-                    or out["true_hw"].tolist() != [th, tw]):
-                raise RuntimeError(f"{name}: canvas {out['canvas_hw']} / "
-                                   f"{out['true_hw']}, stitchax "
-                                   f"{ref['canvas_hw']} / {[th, tw]}")
-            fd = np.abs(out["flow"] - ref["flow"])
-            valid = out["control_valid"] & ref["control_valid"]
-            r = {"H_max_abs": float(np.abs(out["H"] - ref["H"]).max()),
-                 "flow_max_px": float(fd.max()),
-                 "flow_mean_px": float(fd.mean()),
-                 "canvas_box_px": float(np.abs(out["canvas_box"]
-                                               - ref["canvas_box"]).max()),
-                 "control_valid_moved": int((out["control_valid"]
-                                             != ref["control_valid"]).sum()),
-                 "control_dst_max_px": float(np.abs(
-                     out["control_dst"] - ref["control_dst"])[valid].max()),
-                 "mask1_moved_px": int((out["mask1"]
-                                        != ref["mask1"][:th, :tw]).sum())}
-            for key, ours in (("warp2", "output2"),
-                              ("ave_fusion", "new_blend_image")):
-                a = _u8(out[ours])
-                d = np.abs(a.astype(int) - ref[key].astype(int))
-                r[f"{key}_psnr_db"] = _psnr(a, ref[key])
-                r[f"{key}_max_level"] = int(d.max())
-                r[f"{key}_px_off_gt1"] = int((d > 1).sum())
-            pairs[name] = r
-            for k, v in r.items():
-                worse = min if k.endswith("_db") else max
-                worst[k] = worse(worst.get(k, v), v)
-    # context, not gated: the same numbers for the card's bf16 against
-    # stitchax's fp32 stitch and for stitchax's bf16 against its fp32
-    context = {}
+    pairs, context = {}, {}
     with np.load(os.path.join(REPO, REFERENCE)) as fp32, \
             np.load(os.path.join(REPO, BF16_REFERENCE)) as bf16:
         for name in DEMO_PAIRS:
+            ref = {k.split("/", 1)[1]: bf16[k] for k in bf16.files
+                   if k.startswith(name + "/")}
+            out = st.stitch(fp32[f"{name}/img1"].astype(np.float32),
+                            fp32[f"{name}/img2"].astype(np.float32))
+            check_finite(out)
+            r = held.stitch_readings(out, ref)
+            r["control_dst_max_px"] = r.pop("control_dst_valid_max_px")
+            pairs[name] = r
+            # context, not gated: the same numbers for stitchax's bf16
+            # against its fp32 stitch and for the card's bf16 against it
             d = lambda k: np.abs(bf16[f"{name}/{k}"] - fp32[f"{name}/{k}"])
             context[f"stitchax_bf16_vs_fp32/{name}"] = {
                 "H_max_abs": float(d("H").max()),
                 "flow_max_px": float(d("flow").max()),
                 "flow_mean_px": float(d("flow").mean())}
             context[f"card_bf16_vs_stitchax_fp32/{name}"] = {
-                "H_max_abs": float(np.abs(card[name]["H"]
+                "H_max_abs": float(np.abs(out["H"]
                                           - fp32[f"{name}/H"]).max()),
-                "flow_max_px": float(np.abs(card[name]["flow"]
+                "flow_max_px": float(np.abs(out["flow"]
                                             - fp32[f"{name}/flow"]).max())}
     res = {"phase": "stitch_vs_stitchax_bf16", "config": FAST,
            "dtype": "bfloat16", "reference": BF16_REFERENCE,
-           "pairs": pairs, "context": context, **worst}
+           "pairs": pairs, "context": context, **held.worst(pairs.values())}
     _check(res, STITCHAX_BF16_TOL, "stitch_vs_stitchax_bf16")
 
 
@@ -1533,8 +1472,8 @@ def sd_vs_stitchax_phase():
            "ddim_steps": ip.denoise_fn.steps, "inpaint_s": inpaint_s,
            "inpaint_outside_moved_px": int(
                (out[~hole] != ref["inpaint_in"][~hole]).sum()),
-           "inpaint_hole_psnr_db": _psnr(out[hole],
-                                         ref["inpaint_out_hole"][hole])}
+           "inpaint_hole_psnr_db": held.psnr(
+               out[hole], ref["inpaint_out_hole"][hole])}
     if not np.isfinite(out).all():
         raise RuntimeError("sd_vs_stitchax: the inpainter's output is not "
                            "finite")
@@ -1544,25 +1483,15 @@ def sd_vs_stitchax_phase():
     res["stitch_s"] = time.perf_counter() - t0
     check_finite(got)
     th, tw = (int(v) for v in ref["true_hw"])
-    if [int(v) for v in got["true_hw"]] != [th, tw]:
-        emit(res)
-        raise RuntimeError(f"sd_vs_stitchax: canvas {got['true_hw']}, "
-                           f"stitchax {[th, tw]}")
-    files = output_images(got, *pair)
-    lm = np.concatenate([np.abs(got[k] - ref[k]).ravel()
-                         for k in ("learned_mask1", "learned_mask2")])
-    res.update({f"{k}_psnr_db": _psnr(files[k], ref[k])
-                for k in ("warp2", "ave_fusion", "composition")})
+    res.update(held.composition_readings(got, output_images(got, *pair),
+                                         ref))
     res.update(
         canvas_moved_px=float(np.abs(np.concatenate([
             got["canvas_box"][:2] - ref["canvas_origin"],
             got["canvas_hw"] - ref["canvas_hw"]])).max()),
-        mask1_moved_px=int((got["mask1"] != ref["mask1"][:th, :tw]).sum()),
         hole_moved_px=int((got["inpaint_area_mask"]
                            != ref["hole_mask"][:th, :tw]).sum()),
-        hole_share=float(hole.mean()),
-        learned_mask_mean_abs=float(lm.mean()),
-        learned_mask_max_abs=float(lm.max()))
+        hole_share=float(hole.mean()))
     _check(res, SD_STITCHAX_TOL, "sd_vs_stitchax")
 
 
@@ -1594,7 +1523,7 @@ def jpeg_phase():
                 if hashlib.sha256(out).hexdigest() != DEMO_JPEG_SHA256[key]:
                     raise RuntimeError(f"jpeg: the encoding of {key} is not "
                                        "Pillow's")
-                loss_db.append(_psnr(jpeg.decode(out), img))
+                loss_db.append(held.psnr(jpeg.decode(out), img))
     res = {"phase": "jpeg", "images": len(dec_ms), "hw": [384, 448],
            "decode_ms": dec_ms, "encode_ms": enc_ms,
            "decode_ms_median": float(np.median(dec_ms)),
@@ -1662,7 +1591,7 @@ def _cli_files(stitcher, results):
             if got.shape[:2] != tuple(shapes.get(name, (th, tw))):
                 raise RuntimeError(f"cli: {rp}/{name}.jpg is {got.shape}, "
                                    f"expected {shapes.get(name, (th, tw))}")
-            worst = min(worst, _psnr(got, a))
+            worst = min(worst, held.psnr(got, a))
         pairs[os.path.basename(rp)] = {**t, "true_hw": [th, tw]}
     return worst, pairs
 
@@ -1777,18 +1706,7 @@ def _cli_default_vs_stitchax(out, pair, config=DEFAULT):
     with np.load(os.path.join(REPO, path)) as data:
         ref = {k[len(prefix):]: data[k] for k in data.files
                if k.startswith(prefix)}
-    th, tw = (int(v) for v in ref["true_hw"])
-    if [int(v) for v in out["true_hw"]] != [th, tw]:
-        raise RuntimeError(f"cli default: canvas {out['true_hw']}, stitchax "
-                           f"{[th, tw]}")
-    files = output_images(out, *pair)
-    r = {k + "_psnr_db": _psnr(files[k], ref[k])
-         for k in ("warp2", "ave_fusion", "composition")}
-    lm = np.concatenate([np.abs(out[k] - ref[k]).ravel()
-                         for k in ("learned_mask1", "learned_mask2")])
-    r.update(learned_mask_mean_abs=float(lm.mean()),
-             learned_mask_max_abs=float(lm.max()),
-             mask1_moved_px=int((out["mask1"] != ref["mask1"][:th, :tw]).sum()))
+    r = held.composition_readings(out, output_images(out, *pair), ref)
     misses = [k for k, t in CLI_DEFAULT_TOL.items()
               if (r[k] < t if k.endswith("_db") else r[k] > t)]
     r["tol"], r["ok"] = CLI_DEFAULT_TOL, not misses
@@ -1873,40 +1791,12 @@ def evaluate_phase():
         emit(res)
         raise RuntimeError("evaluate: the report's structure is not "
                            "stitchax's")
-    res.update(_eval_vs_stitchax(per_pair, report, warped, valid))
+    with np.load(os.path.join(REPO, EVAL_REFERENCE)) as f:
+        res.update(held.evaluation_readings(per_pair, report, warped, valid,
+                                            {k: f[k] for k in f.files}))
     res["per_pair"] = [list(p) for p in per_pair]
     _check(res, EVAL_STITCHAX_TOL, "evaluate")
     return report, per_pair
-
-
-def _eval_vs_stitchax(per_pair, report, warped, valid):
-    """The worst differences from stitchax's evaluation (EVAL_REFERENCE)."""
-    with np.load(os.path.join(REPO, EVAL_REFERENCE)) as ref:
-        names = [str(n) for n in ref["names"]]
-        if [p[0] for p in per_pair] != names:
-            raise RuntimeError("evaluate: other pairs than stitchax's")
-        got_p = np.array([p[1] for p in per_pair])
-        got_s = np.array([p[2] for p in per_pair])
-        res = {"psnr_abs_diff": float(np.abs(got_p - ref["psnr"]).max()),
-               "ssim_abs_diff": float(np.abs(got_s - ref["ssim"]).max()),
-               "report_psnr_abs_diff": max(
-                   abs(report[k] - float(ref[f"report/{k}"]))
-                   for k in EVAL_REPORT_KEYS if "psnr" in k),
-               "report_ssim_abs_diff": max(
-                   abs(report[k] - float(ref[f"report/{k}"]))
-                   for k in EVAL_REPORT_KEYS if "ssim" in k)}
-        moved = level = 0.0
-        for key in ref.files:
-            if not key.startswith("valid/"):
-                continue
-            i = int(key.split("/")[1])
-            v, w = ref[key], ref[f"warped/{i}"]
-            both = ((valid[i] == 1) & (v == 1))[..., 0]
-            moved = max(moved, float(np.mean(valid[i] != v)))
-            d = np.abs(warped[i].astype(int) - w.astype(int))
-            level = max(level, float(d[both].mean()))
-    res.update(valid_moved_share=moved, warped_mean_level=level)
-    return res
 
 
 def _busy_us(intervals) -> float:
@@ -2496,54 +2386,33 @@ def train_vs_stitchax_phase():
            "launches_per_step": launches,
            "forward_launches_under_grad": grad_launches, "leaves": len(grads),
            **res_masks}
-    for k in ("total", "photometric", "rigid", "border"):
-        r = float(ref[f"metric/{k}"])
-        res[f"{k}_rel"] = abs(got[k] - r) / abs(r)
-    res["loss_rel"] = max(res[f"{k}_rel"] for k in
-                          ("total", "photometric", "rigid", "border"))
-    r = float(ref["metric/grad_norm"])
-    res["grad_norm_rel"] = abs(got["grad_norm"] - r) / r
-    floor = 1e-6 * r
-    keys = [k[len("gradnorm/"):] for k in ref if k.startswith("gradnorm/")]
-    if sorted(keys) != sorted(grads):
-        raise RuntimeError("train_vs_stitchax: other gradient leaves than "
-                           "stitchax's")
-    norm_err = {k: abs(float(np.linalg.norm(grads[k]))
-                       - float(ref[f"gradnorm/{k}"]))
-                / (float(ref[f"gradnorm/{k}"]) + floor) for k in keys}
-    worst = max(norm_err, key=norm_err.get)
-    res.update(leaf_norm_rel=norm_err[worst], leaf_norm_worst=worst,
-               batch_stats_leaves=sum("['batch_stats']" in k for k in keys),
-               batch_stats_norm_rel=max(e for k, e in norm_err.items()
-                                        if "['batch_stats']" in k))
-    kept = [k[len("grad/"):] for k in ref if k.startswith("grad/")]
-    for model in ("homo", "flow"):
-        res[f"leaf_l2_rel_{model}"] = max(
-            float(np.linalg.norm(grads[k] - ref[f"grad/{k}"]))
-            / (float(np.linalg.norm(ref[f"grad/{k}"])) + floor)
-            for k in kept if k.startswith(f"['{model}']"))
-    lr0 = 3.125e-6 / 25
-    worst_u, off, n, unmoved = 0.0, 0, 0, []
-    for k in kept:
-        d = np.abs(updated[k] - ref[f"updated/{k}"])
-        worst_u = max(worst_u, float(
-            (d - 1e-6 * np.abs(ref[f"updated/{k}"]).max()).max()) / lr0)
-        off += int((d > 0.01 * lr0).sum())
-        n += d.size
-        if not np.any(updated[k] != start[k]):
-            unmoved.append(k)
-    res.update(updated_lr0=worst_u, updated_off_share=off / n,
-               unmoved_leaves=unmoved)
+    r = held.step_readings(got, grads, ref)
+    u = held.adamw_first_step(updated, ref, start, 3.125e-6 / 25)
+    norm = r["leaf_norm_rel"]
+    res.update({f"{k}_rel": r["metric_rel"][k]
+                for k in ("total", "photometric", "rigid", "border")})
+    res.update(
+        loss_rel=r["loss_rel"], grad_norm_rel=r["grad_norm_rel"],
+        leaf_norm_rel=norm[r["leaf_norm_worst"]],
+        leaf_norm_worst=r["leaf_norm_worst"],
+        batch_stats_leaves=sum("['batch_stats']" in k for k in norm),
+        batch_stats_norm_rel=max(e for k, e in norm.items()
+                                 if "['batch_stats']" in k),
+        **{f"leaf_l2_rel_{model}": max(
+            e for k, e in r["leaf_l2_rel"].items()
+            if k.startswith(f"['{model}']")) for model in ("homo", "flow")},
+        updated_lr0=u["over_scale_lr0"], updated_off_share=u["off_share"],
+        unmoved_leaves=u["unmoved"])
     want = dict(EXPECT_TRAIN_LAUNCHES)
     if launches != want or grad_launches != EXPECT_TRAIN_GRAD_LAUNCHES:
         emit(res)
         raise RuntimeError(f"train_vs_stitchax: launches per step "
                            f"{launches} ({grad_launches} under grad), "
                            f"expected {want} ({EXPECT_TRAIN_GRAD_LAUNCHES})")
-    if unmoved:
+    if u["unmoved"]:
         emit(res)
         raise RuntimeError(f"train_vs_stitchax: leaves did not move: "
-                           f"{unmoved}")
+                           f"{u['unmoved']}")
     _check(res, dict(TRAIN_STITCHAX_TOL), "train_vs_stitchax")
     del state, step, grads
     torch.cuda.empty_cache()
@@ -2607,9 +2476,7 @@ def train_phase():
     then --resume from step 2 to 4 (equal to the run that did not stop),
     --remat for one step (its loss equal to the plain run's first, and its
     peak), final_ckpt.npz stitching a demo pair through
-    StitchModels.from_npz, and a warm step's split: forward under autograd,
-    the no-grad backward flow call, the backward pass, the update. Returns
-    the split."""
+    StitchModels.from_npz."""
     import shutil
     import tempfile
 
@@ -2694,7 +2561,6 @@ def train_phase():
         del models, out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    split = train_step_split()
     res = {"phase": "train", "steps": 4, "image_size": TRAIN_SIZE,
            "batch": 1, "dtype": "float32", "weights": WEIGHTS,
            "run_s": run_s, "s_per_step_warm": step_s,
@@ -2706,7 +2572,7 @@ def train_phase():
            "resume_loss_rel": resume_loss, "remat_loss_rel": remat_loss,
            "final_ckpt_mib": final_bytes / 2 ** 20,
            "step_ckpt_mib": ckpt_bytes / 2 ** 20,
-           "final_ckpt_stitch": "finite", **split}
+           "final_ckpt_stitch": "finite"}
     if moved < 0.9 * len(init):
         emit(res)
         raise RuntimeError(f"train: only {moved} of {len(init)} trained "
@@ -2714,43 +2580,6 @@ def train_phase():
     _check(res, {"resume_param_max_rel": TRAIN_RESUME_TOL["param_max_rel"],
                  "resume_loss_rel": TRAIN_RESUME_TOL["loss_rel"],
                  "remat_loss_rel": TRAIN_RESUME_TOL["loss_rel"]}, "train")
-    return split
-
-
-def train_step_split(warm=1, timed=3):
-    """ms of a train step's parts, warm, mean of `timed` steps."""
-    import torch
-
-    from stitchax_torch.utils.precision import fp32_exact
-
-    fp32_exact()
-    _, state, step, nets = _train_models()
-    _, _, _, a, b = _train_pair()
-    for _ in range(warm):
-        state, _ = step(state, a, b)
-    timings = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        state, _ = step(state, a, b, timings=timings)
-    step_ms = (time.perf_counter() - t0) * 1e3 / timed
-    out = {f"split_{k}": v / timed for k, v in timings.items()}
-    out["split_step_ms"] = step_ms
-    # the no-grad backward flow call as the step makes it (only its last
-    # prediction upsampled) and with all 12 upsampled, by CUDA events
-    from stitchax_torch.align.adapter import AlignConfig
-    from stitchax_torch.train import align_train_forward
-    _, flow = nets
-    with torch.no_grad():
-        fwd = align_train_forward(*nets, a, b, AlignConfig())
-        warp = fwd["output_H"][..., 0:3]
-        for k, every in (("backward_flow_call_ms", False),
-                         ("backward_flow_call_upsample_all_ms", True)):
-            out[k] = cuda_time(lambda: flow(warp, a, upsample_all=every),
-                               iters=timed, warmup=1, flush=False)
-    del state, step, fwd, warp
-    torch.cuda.empty_cache()
-    return out
 
 
 def profile_train_step():
@@ -2772,17 +2601,6 @@ TRANSREF_LR = 1e-4
 TRANSREF_VGG_SEED = 0
 # the TransRef CLI's defaults (train_transref.py): 512^2, batch 4
 TRANSREF_TRAIN_BATCH, TRANSREF_TRAIN_STEPS = 4, 3
-# the kept leaves of TRANSREF_TRAIN_REFERENCE (its gradients and values
-# after Adam)
-TRANSREF_KEPT = (
-    "['params']['tenc']['block1_0']['attn']['kv']['kernel']",
-    "['params']['tenc']['block1_0']['attn']['kv']['bias']",
-    "['params']['tenc']['refpa1']['pa']['offset_estimator']['scale']"
-    "['kernel']",
-    "['params']['tenc']['refpa1']['pa']['offset_estimator']['scale']"
-    "['bias']",
-    "['params']['clean']['kernel']",
-    "['params']['clean']['bias']")
 # one fp32 TransRef step (TF32 off) on the card against stitchax's jitted
 # step on the CPU (TRANSREF_TRAIN_REFERENCE: the trained TransRef, the
 # seeded VGG, the first committed pair at 512^2, stitchax's boxes); see
@@ -2909,41 +2727,17 @@ def transref_train_vs_stitchax_phase():
            "leaves": len(grads)}
     res["stitchax_metrics"] = {k: float(ref[f"metric/{k}"])
                                for k in (*res["metrics"], "grad_norm")}
-    res["loss_rel"] = max(abs(v - res["stitchax_metrics"][k])
-                          / abs(res["stitchax_metrics"][k])
-                          for k, v in res["metrics"].items())
-    r = float(ref["metric/grad_norm"])
-    res["grad_norm_rel"] = abs(g_norm - r) / r
-    floor = 1e-6 * r
-    keys = [k[len("gradnorm/"):] for k in ref if k.startswith("gradnorm/")]
-    if sorted(keys) != sorted(grads):
-        raise RuntimeError("transref_train_vs_stitchax: other gradient "
-                           "leaves than stitchax's")
-    norm_err = {k: abs(float(np.linalg.norm(grads[k]))
-                       - float(ref[f"gradnorm/{k}"]))
-                / (float(ref[f"gradnorm/{k}"]) + floor) for k in keys}
-    worst = max(norm_err, key=norm_err.get)
-    res.update(leaf_norm_rel=norm_err[worst], leaf_norm_worst=worst)
-    res["leaf_l2_rel"] = max(
-        float(np.linalg.norm(grads[k] - ref[f"grad/{k}"]))
-        / (float(np.linalg.norm(ref[f"grad/{k}"])) + floor)
-        for k in TRANSREF_KEPT)
-    large = worst_u = 0.0
-    off = n = 0
-    unmoved = []
-    for k in TRANSREF_KEPT:
-        d = np.abs(updated[k] - ref[f"updated/{k}"]) / TRANSREF_LR
-        big = np.abs(ref[f"grad/{k}"]) > 1e-6
-        if big.any():
-            large = max(large, float(d[big].max()))
-        worst_u = max(worst_u, float(d.max()))
-        off += int((d > 0.01).sum())
-        n += d.size
-        if not np.any(updated[k] != start[k]):
-            unmoved.append(k)
-    res.update(updated_g_large_lr=large, updated_worst_lr=worst_u,
-               updated_off_share=off / n, unmoved_leaves=unmoved)
-    if res["mask_moved_px"] or unmoved or worst_u > 2.0 + 1e-3:
+    r = held.step_readings({**res["metrics"], "grad_norm": g_norm}, grads,
+                           ref)
+    u = held.adam_step(updated, ref, start, TRANSREF_LR)
+    res.update(loss_rel=r["loss_rel"], grad_norm_rel=r["grad_norm_rel"],
+               leaf_norm_rel=r["leaf_norm_rel"][r["leaf_norm_worst"]],
+               leaf_norm_worst=r["leaf_norm_worst"],
+               leaf_l2_rel=max(r["leaf_l2_rel"].values()),
+               updated_g_large_lr=u["g_large_lr"],
+               updated_worst_lr=u["worst_lr"],
+               updated_off_share=u["off_share"], unmoved_leaves=u["unmoved"])
+    if res["mask_moved_px"] or u["unmoved"] or u["worst_lr"] > 2.0 + 1e-3:
         emit(res)
         raise RuntimeError("transref_train_vs_stitchax: the holes differ "
                            "from stitchax's, a kept leaf did not move, or "
@@ -2961,7 +2755,7 @@ def transref_train_phase():
     temporary directory outside the repo: s per step (the warm steps),
     peak memory, kernel launches per step; the export loaded into the
     port's Stitcher (the default configuration) stitching demo1 with its
-    hole inpainted, finite; then a warm step's split."""
+    hole inpainted, finite."""
     import shutil
     import signal
     import tempfile
@@ -3023,7 +2817,6 @@ def transref_train_phase():
         del models, out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    split = transref_step_split()
     res = {"phase": "transref_train", "steps": TRANSREF_TRAIN_STEPS,
            "image_size": TRAIN_SIZE, "batch": TRANSREF_TRAIN_BATCH,
            "dtype": "float32", "ref_from": "pair", "run_s": run_s,
@@ -3034,35 +2827,8 @@ def transref_train_phase():
                                  for k, v in launches.items()},
            **sizes, "export_stitch": "finite",
            "export_hole_share": hole_share,
-           **split, "ok": True}
+           "ok": True}
     emit(res)
-
-
-def transref_step_split(warm=1, timed=3):
-    """ms of a TransRef train step's parts at 512^2, batch 4 (forward, the
-    loss with the VGG's two forwards, backward, Adam; synchronized between
-    them), warm, mean of `timed` steps; and its peak memory."""
-    import torch
-
-    from stitchax_torch.utils.precision import fp32_exact
-
-    fp32_exact()
-    _, state, _, step, _ = _transref_step()
-    _, _, gt, img2, mask = _transref_batch(TRANSREF_TRAIN_BATCH)
-    for _ in range(warm):
-        state, _ = step(state, gt, img2, mask)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    timings = {}
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        state, _ = step(state, gt, img2, mask, timings=timings)
-    out = {f"split_{k}": v / timed for k, v in timings.items()}
-    out["split_step_ms"] = (time.perf_counter() - t0) * 1e3 / timed
-    out["split_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    del state, step
-    torch.cuda.empty_cache()
-    return out
 
 
 def profile_transref_train_step():
@@ -3086,21 +2852,9 @@ SD_TRAIN_SIZE, SD_TRAIN_BATCH = 128, 8
 # the CLI's short run: a few steps of each phase, two evaluation points
 SD_TRAIN_CLI = ["--steps_vae", "3", "--steps", "4", "--eval_every", "2",
                 "--n_eval", "2", "--save_ckpt"]
-# the kept leaves of SD_TRAIN_REFERENCE (their gradients and values after
-# Adam)
-SD_TRAIN_KEPT = (
-    "['vae']['params']['encoder']['conv_in']['kernel']",
-    "['vae']['params']['encoder']['mid']['attn']['to_q']['kernel']",
-    "['vae']['params']['decoder']['conv_out']['kernel']",
-    "['vae']['params']['decoder']['conv_out']['bias']",
-    "['unet']['params']['conv_in']['kernel']",
-    "['unet']['params']['mid_attn']['attn2_k']['kernel']",
-    "['unet']['params']['conv_out']['kernel']",
-    "['unet']['params']['conv_out']['bias']",
-    "['controlnet']['params']['hint_in']['kernel']",
-    "['controlnet']['params']['zero0']['kernel']")
-SD_TRAIN_STEPS = {"vae": ("vae_total", "vae_l1", "vae_l2"),
-                  "diffusion": ("mse",)}
+# each step's leaves, which its own global norm and floor cover
+SD_TRAIN_STEPS = {"vae": ("['vae']",),
+                  "diffusion": ("['unet']", "['controlnet']")}
 # one fp32 VAE step and one diffusion step (TF32 off) on the card from the
 # committed checkpoint against stitchax's jitted steps on the CPU
 # (SD_TRAIN_REFERENCE: demo crops, the port's boxes, stitchax's t and
@@ -3187,57 +2941,30 @@ def sd_train_vs_stitchax_phase():
     for st, o, gr in ((state, tx, g), (vstate, vtx, vg)):
         apply_updates(st.params, o.update(gr, st.opt_state)[0])
     updated = {**flat(state.params), **flat(vstate.params)}
-    step_of = lambda k: "vae" if k.startswith("['vae']") else "diffusion"
-    norm = {s: math.sqrt(sum(float(np.sum(v.astype(np.float64) ** 2))
-                             for k, v in grads.items() if step_of(k) == s))
-            for s in SD_TRAIN_STEPS}
+    norm = {f"{s}_grad_norm": held.global_norm(grads, p)
+            for s, p in SD_TRAIN_STEPS.items()}
     res = {"phase": "sd_train_vs_stitchax", "image_size": SD_TRAIN_SIZE,
            "batch": len(ref["pixels"]), "dtype": "float32",
            "tf32": torch.backends.cudnn.allow_tf32,
            "reference": SD_TRAIN_REFERENCE, "t": ref["t"].tolist(),
-           "metrics": metrics,
-           "grad_norms": {f"{s}_grad_norm": v for s, v in norm.items()},
+           "metrics": metrics, "grad_norms": norm,
            "launches_per_step": launches, "leaves": len(grads)}
-    want = {k: float(ref[f"metric/{k}"]) for k in metrics}
-    want.update({f"{s}_grad_norm": float(ref[f"metric/{s}_grad_norm"])
-                 for s in SD_TRAIN_STEPS})
-    res["stitchax_metrics"] = want
-    res["loss_rel"] = max(abs(v - want[k]) / abs(want[k])
-                          for k, v in metrics.items())
-    res["grad_norm_rel"] = max(abs(v - want[k]) / want[k]
-                               for k, v in res["grad_norms"].items())
-    floor = {s: 1e-6 * want[f"{s}_grad_norm"] for s in SD_TRAIN_STEPS}
-    keys = [k[len("gradnorm/"):] for k in ref if k.startswith("gradnorm/")]
-    if sorted(keys) != sorted(grads):
-        raise RuntimeError("sd_train_vs_stitchax: other gradient leaves "
-                           "than stitchax's")
-    norm_err = {k: abs(float(np.linalg.norm(grads[k]))
-                       - float(ref[f"gradnorm/{k}"]))
-                / (float(ref[f"gradnorm/{k}"]) + floor[step_of(k)])
-                for k in keys}
-    worst = max(norm_err, key=norm_err.get)
-    res.update(leaf_norm_rel=norm_err[worst], leaf_norm_worst=worst)
-    res["leaf_l2_rel"] = max(
-        float(np.linalg.norm(grads[k] - ref[f"grad/{k}"]))
-        / (float(np.linalg.norm(ref[f"grad/{k}"])) + floor[step_of(k)])
-        for k in SD_TRAIN_KEPT)
-    large = worst_u = 0.0
-    off = n = 0
-    unmoved = []
-    for k in SD_TRAIN_KEPT:
-        lr = SD_TRAIN_LR_VAE if step_of(k) == "vae" else SD_TRAIN_LR
-        d = np.abs(updated[k] - ref[f"updated/{k}"]) / lr
-        big = np.abs(ref[f"grad/{k}"]) > 1e-6
-        if big.any():
-            large = max(large, float(d[big].max()))
-        worst_u = max(worst_u, float(d.max()))
-        off += int((d > 0.01).sum())
-        n += d.size
-        if not np.any(updated[k] != start[k]):
-            unmoved.append(k)
-    res.update(updated_g_large_lr=large, updated_worst_lr=worst_u,
-               updated_off_share=off / n, unmoved_leaves=unmoved)
-    if unmoved or worst_u > 2.0 + 1e-3:
+    res["stitchax_metrics"] = {k: float(ref[f"metric/{k}"])
+                               for k in (*metrics, *norm)}
+    r = held.step_readings({**metrics, **norm}, grads, ref,
+                           {f"{s}_grad_norm": p
+                            for s, p in SD_TRAIN_STEPS.items()})
+    u = held.adam_step(updated, ref, start,
+                       {k: SD_TRAIN_LR_VAE if k.startswith("['vae']")
+                        else SD_TRAIN_LR for k in held.kept_leaves(ref)})
+    res.update(loss_rel=r["loss_rel"], grad_norm_rel=r["grad_norm_rel"],
+               leaf_norm_rel=r["leaf_norm_rel"][r["leaf_norm_worst"]],
+               leaf_norm_worst=r["leaf_norm_worst"],
+               leaf_l2_rel=max(r["leaf_l2_rel"].values()),
+               updated_g_large_lr=u["g_large_lr"],
+               updated_worst_lr=u["worst_lr"],
+               updated_off_share=u["off_share"], unmoved_leaves=u["unmoved"])
+    if u["unmoved"] or u["worst_lr"] > 2.0 + 1e-3:
         emit(res)
         raise RuntimeError("sd_train_vs_stitchax: a kept leaf did not move "
                            "or an element moved by more than 2 lr")
@@ -3543,8 +3270,14 @@ def pretrain_vs_stitchax_phase():
     args = [torch.as_tensor(np.asarray(ref[k], np.float32), device="cuda")
             for k in ("img1", "img2", "noise", "query_noise")]
     library.reset_launches()
-    loss = model(*args)
-    loss.backward()
+    losses = []
+
+    def run():
+        losses.append(model(*args))
+        losses[0].backward()
+
+    by_radius = _k3_launches_by_radius(_capture_kernel_inputs(run))
+    loss = losses[0]
     torch.cuda.synchronize()
     launches = dict(library.launches)
     grads = _flat_grads(model)
@@ -3562,8 +3295,7 @@ def pretrain_vs_stitchax_phase():
            "leaves": len(names), "leaf_norm_rel": float(rel.max()),
            "worst_leaf": names[int(rel.argmax())],
            "leaf_norm_rel_median": float(np.median(rel)),
-           "launches": launches,
-           "cost_lookup_by_radius": dict(library.cost_lookup_by_radius)}
+           "launches": launches, "cost_lookup_by_radius": by_radius}
     if sorted(grads) != sorted(names):
         emit(res)
         raise RuntimeError("pretrain_vs_stitchax: the gradient's leaves are "
@@ -3617,7 +3349,7 @@ def pretrain_pair():
 def _capture_kernel_inputs(run):
     """{(kernel, input shapes...): [calls, the first call's arguments]} of
     every K1 / K3 / K4 launch in run() (the arguments kept as they were
-    passed, strides included)."""
+    passed, strides included, detached from autograd)."""
     import torch
 
     from stitchax_torch.ops.kernels import (cost_lookup, gsa_attention,
@@ -3632,7 +3364,9 @@ def _capture_kernel_inputs(run):
         def wrap(*args, _orig=orig, _name=name):
             key = (_name,) + tuple(tuple(a.shape) if isinstance(
                 a, torch.Tensor) else a for a in args)
-            entry = seen.setdefault(key, [0, args])
+            entry = seen.setdefault(key, [0, tuple(
+                a.detach() if isinstance(a, torch.Tensor) else a
+                for a in args)])
             entry[0] += 1
             return _orig(*args)
 
@@ -3644,6 +3378,16 @@ def _capture_kernel_inputs(run):
         for mod, orig in patched:
             mod._launch = orig
     return seen
+
+
+def _k3_launches_by_radius(captured):
+    """K3's launches in a `_capture_kernel_inputs` capture, by radius (the
+    last of its keys)."""
+    by_radius = {}
+    for key, (n, _) in captured.items():
+        if key[0] == "cost_lookup":
+            by_radius[key[-1]] = by_radius.get(key[-1], 0) + n
+    return by_radius
 
 
 def _kernel_entry(key, args):
@@ -3829,10 +3573,12 @@ def pretrain_phase(smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     library.reset_launches()
-    loss = step()
+    losses = []
+    captured = _capture_kernel_inputs(lambda: losses.append(step()))
+    loss = losses[0]
     torch.cuda.synchronize()
     launches = dict(library.launches)
-    by_radius = dict(library.cost_lookup_by_radius)
+    by_radius = _k3_launches_by_radius(captured)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     warm = []
     for _ in range(3):
@@ -3865,9 +3611,6 @@ def pretrain_phase(smi):
         emit(res)
         raise RuntimeError(f"pretrain: loss finite {res['finite']}, "
                            f"launches off {bad}")
-    with torch.no_grad():
-        captured = _capture_kernel_inputs(
-            lambda: model(a, b, noise, qnoise))
     rows, detail = pretrain_kernel_rows(captured, launches, by_radius)
     bad = sorted({d["kernel"] for d in detail
                   if not d["max_abs_err"] <= d["tol"]})
@@ -4320,7 +4063,7 @@ def main() -> int:
 
     step_launches = train_vs_stitchax_phase()
     train_rows = kernels_backward_phase(smi, *step_launches)
-    split = train_phase()
+    train_phase()
     transref_train_vs_stitchax_phase()
     transref_train_phase()
     sd_train_vs_stitchax_phase()
@@ -4332,8 +4075,7 @@ def main() -> int:
     dp_evaluate_phase(one_card_evaluation)
     for row in rows:
         if row["name"] in train_rows:
-            row["train"] = {**train_rows[row["name"]],
-                            "step_split_ms": split}
+            row["train"] = train_rows[row["name"]]
     rows += pretrain_rows
 
     emit({"kernels": rows})

@@ -39,9 +39,6 @@ launches: Dict[str, int] = {"gsa_attention": 0, "cost_lookup": 0,
                             "pair_scores": 0}
 # of those, the launches made by an autograd Function's forward (under grad)
 grad_launches: Dict[str, int] = dict(launches)
-# K3's launches by lookup radius (r = 4 in the decoder, r = 7 for the MAE
-# pretrain targets)
-cost_lookup_by_radius: Dict[int, int] = {}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -49,7 +46,6 @@ _lib: Optional[ctypes.CDLL] = None
 def reset_launches() -> None:
     for k in launches:
         launches[k] = grad_launches[k] = 0
-    cost_lookup_by_radius.clear()
 
 
 def sources() -> List[Path]:

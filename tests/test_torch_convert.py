@@ -190,7 +190,8 @@ def _imports(path):
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f)
+             for f in ("chip_smoke.py", "held_to_stitchax.py")]
     for root, _, names in os.walk(os.path.join(REPO, "stitchax_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

@@ -7,7 +7,6 @@ and a torch copy of them), as tests/test_demo_golden_transref.py builds it.
 """
 
 import os
-import sys
 
 import numpy as np
 import jax
@@ -15,11 +14,9 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-sys.path.insert(0, os.path.dirname(__file__))
-
-from stub_backbones import stub_flow_fn, stub_homo_fn  # noqa: E402
-from test_torch_stitch import (_load_demo_pair, _psnr, t_stub_flow,  # noqa: E402
-                               t_stub_homo)
+from held_to_stitchax import psnr
+from stub_backbones import stub_flow_fn, stub_homo_fn
+from test_torch_stitch import _load_demo_pair, t_stub_flow, t_stub_homo
 
 from stitchax.compose.inpainters import TransRefInpainter as JTransRefInp  # noqa: E402
 from stitchax.compose.mix_methods import all_img1_with_inpaint as j_mix  # noqa: E402
@@ -303,10 +300,10 @@ def test_default_config_stitch_matches_stitchax(monkeypatch, transref_tree,
     flips = np.mean(np.abs(got["mask2"] - ref["mask2"]) > 1e-3)
     assert flips <= 1e-3, flips
     # images on [0, 255]; the TransRef ring on its own
-    assert _psnr(got["output2"], ref["warp2"]) > 90.0
-    assert _psnr(got["output2"][ring], ref["warp2"][ring]) > 90.0
-    assert _psnr(got["new_blend_image"], ref["ave_fusion"]) > 90.0
-    assert _psnr(got["composition"], ref["composition"]) > 90.0
+    assert psnr(got["output2"], ref["warp2"]) > 90.0
+    assert psnr(got["output2"][ring], ref["warp2"][ring]) > 90.0
+    assert psnr(got["new_blend_image"], ref["ave_fusion"]) > 90.0
+    assert psnr(got["composition"], ref["composition"]) > 90.0
     for k in ("learned_mask1", "learned_mask2"):
         d = np.abs(got[k] - ref[k])
         assert d.mean() < 1e-5 and d.max() < 5e-3, (k, d.mean(), d.max())

@@ -435,32 +435,16 @@ EVAL_TOL = {"psnr_abs_diff": 0.1, "ssim_abs_diff": 5e-3,
 
 
 def compare_with_reference(per_pair, report, warped, valid):
-    """The port's evaluation against REF: {metric: worst value}, the
-    limits in EVAL_TOL. `per_pair` is [(name, psnr, ssim)], `warped` /
-    `valid` the uint8 arrays of the saved pairs by index."""
-    with np.load(REF) as ref:
-        names = [str(n) for n in ref["names"]]
-        assert [p[0] for p in per_pair] == names
-        got_p = np.array([p[1] for p in per_pair])
-        got_s = np.array([p[2] for p in per_pair])
-        res = {"psnr_abs_diff": float(np.abs(got_p - ref["psnr"]).max()),
-               "ssim_abs_diff": float(np.abs(got_s - ref["ssim"]).max()),
-               "report_psnr_abs_diff": max(
-                   abs(report[k] - float(ref[f"report/{k}"]))
-                   for k in REPORT_KEYS if "psnr" in k),
-               "report_ssim_abs_diff": max(
-                   abs(report[k] - float(ref[f"report/{k}"]))
-                   for k in REPORT_KEYS if "ssim" in k)}
-        assert report["num_pairs"] == int(ref["report/num_pairs"])
-        moved, level = 0.0, 0.0
-        for i in SAVED_PAIRS:
-            v, w = ref[f"valid/{i}"], ref[f"warped/{i}"]
-            both = (valid[i] == 1) & (v == 1)
-            moved = max(moved, float(np.mean(valid[i] != v)))
-            d = np.abs(warped[i].astype(int) - w.astype(int))
-            level = max(level, float(d[both[..., 0]].mean()))
-        res.update(valid_moved_share=moved, warped_mean_level=level)
-    return res
+    """The port's evaluation against REF (`held_to_stitchax.
+    evaluation_readings`): {metric: worst value}, the limits in EVAL_TOL.
+    `per_pair` is [(name, psnr, ssim)], `warped` / `valid` the uint8
+    arrays of the saved pairs by index."""
+    from held_to_stitchax import evaluation_readings
+
+    with np.load(REF) as f:
+        ref = {k: f[k] for k in f.files}
+    assert report["num_pairs"] == int(ref["report/num_pairs"])
+    return evaluation_readings(per_pair, report, warped, valid, ref)
 
 
 @pytest.mark.slow

@@ -55,7 +55,9 @@ DEFAULT, DEFAULT_PAIR = "all_img1_with_inpaint_g12_transRef", "demo1"
 # cropped to the true canvas as stitchax's Stitcher.stitch returns them, the
 # fp32 masks are at the bucketed canvas size, as stitch_render gives them
 ALIGN_KEYS = ("H", "flow", "origin_occlusion_mask", "canvas_box")
-CONTROL_KEYS = ("control_src", "control_dst", "control_valid")
+# stitchax's canvases and the port's, held within one uint8 level
+CANVASES = {"warp1": "output1", "warp2": "output2",
+            "ave_fusion": "new_blend_image"}
 
 
 def load_pair(name):
@@ -154,10 +156,12 @@ def stitchax_default_reference(st, img1, img2):
         res = st._stitch_device(img1, img2)["result"]
     finally:
         jprec.bf16_call = saved
+    from held_to_stitchax import to_u8
+
     th, tw = res["out_h"], res["out_w"]
     crop = lambda v: np.asarray(v)[:th, :tw]
-    out = {k: _u8(crop(res[k])) for k in ("warp2", "ave_fusion",
-                                          "composition")}
+    out = {k: to_u8(crop(res[k])) for k in ("warp2", "ave_fusion",
+                                            "composition")}
     out.update({k: crop(res[k]) for k in ("learned_mask1", "learned_mask2")})
     out.update(mask1=np.asarray(res["mask1"]),
                canvas_hw=np.array(res["mask1"].shape[:2]),
@@ -250,53 +254,40 @@ def write_reference(path=REF):
 
 # ------------------------------ the tests ------------------------------------
 
-def _psnr(a, b):
-    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return np.inf if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
-
-
-def _u8(x):
-    """A canvas as stitchax's exact-RGB pack rounds it."""
-    return np.rint(np.clip(x, 0, 255)).astype(np.uint8)
-
-
 def _ref(name):
     with np.load(REF) as d:
         return {k.split("/", 1)[1]: d[k] for k in d.files
                 if k.startswith(name + "/")}
 
 
-def _canvas_checks(name, got, ref):
+def _readings(got, ref):
+    """`held_to_stitchax.stitch_readings` of a Stitcher.stitch_tensors
+    dict."""
+    from held_to_stitchax import stitch_readings
+
+    out = {k: v.numpy() for k, v in got.items()
+           if k not in ("canvas", "true_hw")}
+    out.update(canvas_hw=got["canvas"], true_hw=got["true_hw"])
+    return stitch_readings(out, ref, CANVASES)
+
+
+def _stitch_checks(name, got, ref, atol=1e-4):
     """The port's stitch (Stitcher.stitch_tensors' dict, on the CPU) against
-    stitchax's committed outputs: mask1 bit-equal, warp1 / warp2 /
-    ave_fusion within one uint8 level of stitchax's. Returns the PSNRs."""
-    th, tw = ref["warp2"].shape[:2]
-    assert tuple(got["canvas"]) == tuple(ref["canvas_hw"]), name
-    assert tuple(got["true_hw"]) == (th, tw), name
-    mask1 = got["mask1"].numpy()
-    flips = int((mask1 != ref["mask1"]).sum())
-    assert flips == 0, (name, "mask1 values that differ", flips)
-    psnr = {}
-    for key, ours in (("warp1", "output1"), ("warp2", "output2"),
-                      ("ave_fusion", "new_blend_image")):
-        a = _u8(got[ours].numpy()[:th, :tw])
-        d = np.abs(a.astype(int) - ref[key].astype(int))
-        assert d.max() <= 1, (name, key, int(d.max()), int((d > 1).sum()))
-        psnr[key] = _psnr(a, ref[key])
-    return psnr
-
-
-def _control_checks(name, got, ref, atol=1e-4):
-    """The same control points, valid at the same places; their targets,
-    which sample the flow, within `atol` px (from one flow: 1e-4, where one
-    fp32 ulp of ~150 px is 1.5e-5 and the TPS stage sums in another
-    order)."""
-    np.testing.assert_array_equal(got["control_src"], ref["control_src"],
-                                  err_msg=name)
-    np.testing.assert_array_equal(got["control_valid"], ref["control_valid"],
-                                  err_msg=name)
-    np.testing.assert_allclose(got["control_dst"], ref["control_dst"],
-                               rtol=0, atol=atol, err_msg=name)
+    stitchax's committed outputs: the same canvas; mask1 bit-equal; the
+    same control points, valid at the same places, their targets, which
+    sample the flow, within `atol` px (from one flow: 1e-4, where one fp32
+    ulp of ~150 px is 1.5e-5 and the TPS stage sums in another order); the
+    canvases within one uint8 level of stitchax's. Returns the readings
+    (`held_to_stitchax.stitch_readings`)."""
+    r = _readings(got, ref)
+    assert r["mask1_moved_px"] == 0, (name, r["mask1_moved_px"])
+    np.testing.assert_array_equal(got["control_src"].numpy(),
+                                  ref["control_src"], err_msg=name)
+    assert r["control_valid_moved"] == 0, (name, r["control_valid_moved"])
+    assert r["control_dst_max_px"] <= atol, (name, r["control_dst_max_px"])
+    for key in CANVASES:
+        assert r[f"{key}_max_level"] <= 1, (name, key, r)
+    return r
 
 
 @pytest.mark.parametrize("name", PAIRS)
@@ -322,9 +313,8 @@ def test_render_tps_mix_match_stitchax(name):
     align = {k: torch.from_numpy(ref[k].astype(np.float32))[None]
              for k in ALIGN_KEYS}
     got = st.stitch_aligned(img1, img2, align)
-    _control_checks(name, {k: got[k].numpy() for k in CONTROL_KEYS}, ref)
-    psnr = _canvas_checks(name, got, ref)
-    print(name, psnr)
+    r = _stitch_checks(name, got, ref)
+    print(name, {k: v for k, v in r.items() if k.endswith("_psnr_db")})
 
 
 @pytest.mark.parametrize("name", PAIRS)
@@ -425,17 +415,13 @@ def trained():
 
 def _end_to_end_checks(name, got, refs):
     for ref in refs:
-        H = np.abs(got["H"].numpy() - ref["H"]).max()
-        flow = np.abs(got["flow"].numpy() - ref["flow"]).max()
-        print(name, "H", H, "flow", flow)
-        assert H <= 1e-4, (name, H)
-        assert flow <= 5e-3, (name, flow)
-        np.testing.assert_array_equal(got["canvas_box"].numpy(),
-                                      ref["canvas_box"])
+        r = _readings(got, ref)
+        print(name, r)
+        assert r["H_max_abs"] <= 1e-4, (name, r["H_max_abs"])
+        assert r["flow_max_px"] <= 5e-3, (name, r["flow_max_px"])
+        assert r["canvas_box_px"] == 0, (name, r["canvas_box_px"])
         # the targets move with the flow
-        _control_checks(name, {k: got[k].numpy() for k in CONTROL_KEYS},
-                        ref, atol=5e-3)
-        print(name, _canvas_checks(name, got, ref))
+        _stitch_checks(name, got, ref, atol=5e-3)
 
 
 @pytest.mark.slow
@@ -509,21 +495,10 @@ def default_config_checks(got, pair, ref):
     """{metric: value} of the port's default-configuration stitch of
     `pair` (numpy outputs of `Stitcher.stitch`) against stitchax's
     committed ones."""
+    from held_to_stitchax import composition_readings
     from stitchax_torch.run.stitcher import output_images
 
-    th, tw = (int(v) for v in ref["true_hw"])
-    assert [int(v) for v in got["true_hw"]] == [th, tw]
-    assert [int(v) for v in got["canvas_hw"]] == list(ref["canvas_hw"])
-    files = output_images(got, *pair)
-    res = {f"{k}_psnr_db": _psnr(files[k], ref[k])
-           for k in ("warp2", "ave_fusion", "composition")}
-    lm = np.concatenate([np.abs(got[k] - ref[k]).ravel()
-                         for k in ("learned_mask1", "learned_mask2")])
-    res.update(learned_mask_mean_abs=float(lm.mean()),
-               learned_mask_max_abs=float(lm.max()),
-               mask1_moved_px=int((got["mask1"]
-                                   != ref["mask1"][:th, :tw]).sum()))
-    return res
+    return composition_readings(got, output_images(got, *pair), ref)
 
 
 @pytest.mark.slow

@@ -39,15 +39,6 @@ def _need(path):
         pytest.skip(f"{path} is not in this checkout")
 
 
-def _psnr(a, b, peak=255.0):
-    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
-    return float("inf") if mse == 0 else 10 * np.log10(peak ** 2 / mse)
-
-
-def _u8(x):
-    return np.rint(np.clip(x, 0, 255)).astype(np.uint8)
-
-
 # ----------------------------- the reference ----------------------------------
 
 def stitchax_sd_reference(img1, img2):
@@ -91,8 +82,8 @@ def stitchax_sd_reference(img1, img2):
     th, tw = res["out_h"], res["out_w"]
     crop = lambda v: np.asarray(v)[:th, :tw]
     hole = seen["mask"][..., :1] > 0.5
-    out = {k: _u8(crop(res[k])) for k in ("warp2", "ave_fusion",
-                                          "composition")}
+    out = {k: to_u8(crop(res[k])) for k in ("warp2", "ave_fusion",
+                                            "composition")}
     out.update({k: crop(res[k]) for k in ("learned_mask1", "learned_mask2")})
     out.update(
         mask1=np.asarray(res["mask1"]),
@@ -128,6 +119,7 @@ from stitchax.compose.mix_methods import inpaint_all_area as j_mix  # noqa: E402
 from stitchax.models import clip_text as jclip  # noqa: E402
 from stitchax.models import diffusion as jdiff  # noqa: E402
 from stitchax.models import vae as jvae  # noqa: E402
+from held_to_stitchax import composition_readings, psnr, to_u8  # noqa: E402
 from stitchax_torch import convert  # noqa: E402
 from stitchax_torch.compose import inpainters  # noqa: E402
 from stitchax_torch.compose.inpainters import (  # noqa: E402
@@ -538,21 +530,14 @@ def sd_stitch_checks(got, pair, ref):
     from stitchax_torch.run.stitcher import output_images
 
     th, tw = (int(v) for v in ref["true_hw"])
-    files = output_images(got, *pair)
-    res = {f"{k}_psnr_db": _psnr(files[k], ref[k])
-           for k in ("warp2", "ave_fusion", "composition")}
-    lm = np.concatenate([np.abs(got[k] - ref[k]).ravel()
-                         for k in ("learned_mask1", "learned_mask2")])
+    res = composition_readings(got, output_images(got, *pair), ref)
     res.update(
         canvas_moved_px=float(np.abs(np.concatenate([
             got["canvas_box"][:2] - ref["canvas_origin"],
             got["true_hw"] - ref["true_hw"],
             got["canvas_hw"] - ref["canvas_hw"]])).max()),
-        mask1_moved_px=int((got["mask1"] != ref["mask1"][:th, :tw]).sum()),
         hole_moved_px=int((got["inpaint_area_mask"]
-                           != ref["hole_mask"][:th, :tw]).sum()),
-        learned_mask_mean_abs=float(lm.mean()),
-        learned_mask_max_abs=float(lm.max()))
+                           != ref["hole_mask"][:th, :tw]).sum()))
     return res
 
 
@@ -575,7 +560,7 @@ def test_sd_inpainter_matches_stitchax_on_its_inputs(sd_models):
     got = StableDiffusionInpainter(models=sd_models).inpaint(
         T(ref["inpaint_in"]), T(ref["inpaint_mask"])).numpy()
     np.testing.assert_array_equal(got[~hole], ref["inpaint_in"][~hole])
-    db = _psnr(got[hole], ref["inpaint_out_hole"][hole])
+    db = psnr(got[hole], ref["inpaint_out_hole"][hole])
     print({"inpaint_hole_psnr_db": db})
     assert db >= 105.0
 

@@ -15,13 +15,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from held_to_stitchax import psnr  # noqa: E402
 from stitchax.models import diffusion as jdiff  # noqa: E402
 from stitchax.models.sd_pipeline import load_sd_checkpoint as j_load_sd  # noqa: E402
 from stitchax.models.sd_pipeline import make_sd_inpaint_fn as j_make_sd  # noqa: E402
 from stitchax_torch.models.sd_pipeline import (  # noqa: E402
     load_sd_checkpoint, make_sd_inpaint_fn)
 from test_torch_sd import (J, T, _clip_state_dict, _hole_image,  # noqa: E402
-                           _jcfgs, _psnr, sd_blob, sd_models)
+                           _jcfgs, sd_blob, sd_models)
 
 
 @pytest.mark.parametrize("strength,min_psnr", [(0.35, 110.0),
@@ -49,7 +50,7 @@ def test_inpaint_fn_matches_stitchax(rng, sd_blob, sd_models, strength,
     np.testing.assert_array_equal(want[keep], img[keep])
     hole = ~keep
     assert np.abs(want[hole] - img[hole]).mean() > 1.0
-    assert _psnr(got[hole], want[hole]) >= min_psnr
+    assert psnr(got[hole], want[hole]) >= min_psnr
 
 
 def test_load_sd_checkpoint_diffusers_pack_matches_stitchax(rng, tmp_path):
@@ -83,4 +84,4 @@ def test_load_sd_checkpoint_diffusers_pack_matches_stitchax(rng, tmp_path):
     keep = mask[..., 0] < 0.5
     np.testing.assert_array_equal(got[keep], img[keep])
     assert np.abs(want[~keep] - img[~keep]).mean() > 1.0
-    assert _psnr(got[~keep], want[~keep]) >= 110.0
+    assert psnr(got[~keep], want[~keep]) >= 110.0

@@ -15,10 +15,11 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from held_to_stitchax import psnr  # noqa: E402
 from stitchax.compose import inpainters as j_inpainters  # noqa: E402
 from stitchax_torch import convert  # noqa: E402
 from test_torch_sd import (CKPT, DIFFUSION, SD_CKPT, T, _need,  # noqa: E402
-                           _psnr, sd_models)
+                           sd_models)
 
 
 class _Cfg(dict):
@@ -87,6 +88,6 @@ def test_diffusion_stitch_matches_stitchax(monkeypatch, sd_models):
     hole = np.asarray(ref["inpaint_area_mask"])
     assert (hole > 0.5).mean() > 0.002
     np.testing.assert_array_equal(got["inpaint_area_mask"], hole)
-    assert _psnr(got["output2"], ref["warp2"]) >= 90.0
-    assert _psnr(got["new_blend_image"], ref["ave_fusion"]) >= 90.0
-    assert _psnr(got["composition"], ref["composition"]) >= 90.0
+    assert psnr(got["output2"], ref["warp2"]) >= 90.0
+    assert psnr(got["new_blend_image"], ref["ave_fusion"]) >= 90.0
+    assert psnr(got["composition"], ref["composition"]) >= 90.0

@@ -57,8 +57,9 @@ KEPT = (
     "['unet']['params']['conv_out']['bias']",
     "['controlnet']['params']['hint_in']['kernel']",
     "['controlnet']['params']['zero0']['kernel']")
-STEPS = {"vae": ("vae_total", "vae_l1", "vae_l2"),
-         "diffusion": ("mse",)}
+# each step's global norm and the leaves it covers
+NORMS = {"vae_grad_norm": ("['vae']",),
+         "diffusion_grad_norm": ("['unet']", "['controlnet']")}
 LEAVES = {"small": {"vae": 240, "diffusion": 440},
           "full": {"vae": 244, "diffusion": 440}}
 
@@ -233,17 +234,13 @@ def stitchax_steps(trees, context, unet_kw, vae_kw, x, image01, hole, seed):
     return metrics, grads, updated, t, eps
 
 
-def _grad_norm(grads, step):
-    return np.float32(np.sqrt(sum(
-        float(np.sum(g.astype(np.float64) ** 2)) for k, g in grads.items()
-        if _step_of(k) == step)))
-
-
 def reference(kind):
     """stitchax's two steps as the references keep them: the size, the
     pixels and boxes, t and eps, the metrics, each step's global and
     every leaf's gradient norm, the KEPT leaves' gradients and values
     after Adam; all the gradients under "all_grads" (not saved)."""
+    from held_to_stitchax import global_norm, step_reference
+
     if kind == "small":
         (unet_kw, vae_kw), (trees, context) = configs(SMALL_W), small_trees()
         size, batch = SMALL, SMALL_BATCH
@@ -257,14 +254,8 @@ def reference(kind):
     metrics, grads, updated, t, eps = stitchax_steps(
         trees, context, unet_kw, vae_kw, x, image01, hole, DATA_SEED)
     out.update(t=t, eps=eps)
-    out.update({f"metric/{k}": np.float32(v) for k, v in metrics.items()})
-    for step in STEPS:
-        out[f"metric/{step}_grad_norm"] = _grad_norm(grads, step)
-    out.update({f"gradnorm/{k}": np.float32(np.linalg.norm(g))
-                for k, g in grads.items()})
-    for k in KEPT:
-        out[f"grad/{k}"] = grads[k]
-        out[f"updated/{k}"] = updated[k]
+    metrics.update({n: global_norm(grads, p) for n, p in NORMS.items()})
+    out.update(step_reference(metrics, grads, updated, KEPT))
     out["all_grads"] = grads
     return out
 
@@ -287,6 +278,7 @@ def port_steps(ref, trees, context, unet_kw, vae_kw, device="cpu"):
     """The port's diffusion step and then its VAE step from `trees` on the
     reference's inputs, t and eps: (metrics, raw gradients, tensors after
     Adam), flat by stitchax's key strings."""
+    from held_to_stitchax import global_norm
     from stitchax_torch.train.optim import apply_updates
     from stitchax_torch.train.sd_inpaint_trainer import (
         create_train_state, make_diffusion_train_step, make_vae_train_step)
@@ -318,8 +310,7 @@ def port_steps(ref, trees, context, unet_kw, vae_kw, device="cpu"):
     grads.update(flat(g))
     apply_updates(state.params, tx.update(g, state.opt_state)[0])
     updated.update(flat(state.params))
-    for s in STEPS:
-        metrics[f"{s}_grad_norm"] = float(_grad_norm(grads, s))
+    metrics.update({n: global_norm(grads, p) for n, p in NORMS.items()})
     return metrics, grads, updated
 
 
@@ -336,34 +327,21 @@ def small_steps():
     return ref, port_steps(ref, trees, context, *configs(SMALL_W)), trees
 
 
-def check_metrics(got, ref, tol):
-    for step, names in STEPS.items():
-        for k in names:
-            r = float(ref[f"metric/{k}"])
-            assert abs(got[k] - r) <= tol["loss_rel"] * abs(r), (k, got[k], r)
-        k = f"{step}_grad_norm"
-        r = float(ref[f"metric/{k}"])
-        assert abs(got[k] - r) <= tol["grad_norm_rel"] * r, (k, got[k], r)
+def readings(got, grads, ref, kind):
+    """`held_to_stitchax.step_readings` of the port's two steps, each leaf
+    floored by its own step's norm; each step has LEAVES[kind] leaves."""
+    from held_to_stitchax import step_readings
 
-
-def leaf_errors(grads, ref, kind):
-    """({leaf: |norm - stitchax's| / (stitchax's + floor)} over every leaf,
-    {kept leaf: relative L2 error of its gradient}); the floor, 1e-6 of
-    its step's global norm, keeps leaves whose gradient vanishes from
-    reading as noise."""
-    floor = {s: 1e-6 * float(ref[f"metric/{s}_grad_norm"]) for s in STEPS}
-    keys = [k[len("gradnorm/"):] for k in ref if k.startswith("gradnorm/")]
-    assert sorted(keys) == sorted(grads)
+    r = step_readings(got, grads, ref, NORMS)
     for s, n in LEAVES[kind].items():
-        assert sum(_step_of(k) == s for k in keys) == n, s
-    norms = {k: abs(float(np.linalg.norm(grads[k]))
-                    - float(ref[f"gradnorm/{k}"]))
-             / (float(ref[f"gradnorm/{k}"]) + floor[_step_of(k)])
-             for k in keys}
-    l2 = {k: float(np.linalg.norm(grads[k] - ref[f"grad/{k}"]))
-          / (float(np.linalg.norm(ref[f"grad/{k}"])) + floor[_step_of(k)])
-          for k in KEPT}
-    return norms, l2
+        assert sum(_step_of(k) == s for k in r["leaf_norm_rel"]) == n, s
+    return r
+
+
+def check_metrics(r, tol):
+    for k, e in r["metric_rel"].items():
+        lim = tol["grad_norm_rel" if k in NORMS else "loss_rel"]
+        assert e <= lim, (k, e)
 
 
 def check_updated(got, ref, start, tol):
@@ -373,22 +351,15 @@ def check_updated(got, ref, start, tol):
     tol["where_g_large_lr"], elsewhere within 2 lr; the share off by more
     than 0.01 lr within tol["off_share"]. Returns (the worst element where
     |g| > 1e-6, the worst, the share), in lr."""
-    large = worst = 0.0
-    off = n = 0
-    for k in KEPT:
-        lr = LR_VAE if _step_of(k) == "vae" else LR
-        d = np.abs(got[k] - ref[f"updated/{k}"]) / lr
-        big = np.abs(ref[f"grad/{k}"]) > 1e-6
-        if big.any():
-            large = max(large, float(d[big].max()))
-        worst = max(worst, float(d.max()))
-        off += int((d > 0.01).sum())
-        n += d.size
-        assert np.any(got[k] != start[k]), k
-    assert large <= tol["where_g_large_lr"], large
-    assert worst <= 2.0 + 1e-3, worst
-    assert off <= tol["off_share"] * n, (off, n)
-    return large, worst, off / n
+    from held_to_stitchax import adam_step
+
+    u = adam_step(got, ref, start, {k: LR_VAE if _step_of(k) == "vae"
+                                    else LR for k in KEPT})
+    assert not u["unmoved"], u["unmoved"]
+    assert u["g_large_lr"] <= tol["where_g_large_lr"], u["g_large_lr"]
+    assert u["worst_lr"] <= 2.0 + 1e-3, u["worst_lr"]
+    assert u["off_share"] <= tol["off_share"], u["off_share"]
+    return u["g_large_lr"], u["worst_lr"], u["off_share"]
 
 
 # readings at the small size on this CPU: the losses 1.3e-7 relative (the
@@ -403,17 +374,18 @@ UPDATE_TOL = {"where_g_large_lr": 1e-3, "off_share": 1e-3}
 
 
 def test_small_steps_losses_and_grad_norms(small_steps):
-    ref, (got, *_), _ = small_steps
-    check_metrics(got, ref, SMALL_TOL)
+    ref, (got, grads, _), _ = small_steps
+    check_metrics(readings(got, grads, ref, "small"), SMALL_TOL)
 
 
 def test_small_steps_gradients_match(small_steps):
     """Every leaf's gradient norm, and the kept leaves' whole gradients."""
-    ref, (_, grads, _), _ = small_steps
-    norms, l2 = leaf_errors(grads, ref, "small")
-    worst = max(norms, key=norms.get)
-    assert norms[worst] <= SMALL_TOL["leaf_norm_rel"], (worst, norms[worst])
-    for k, e in l2.items():
+    ref, (got, grads, _), _ = small_steps
+    r = readings(got, grads, ref, "small")
+    worst = r["leaf_norm_worst"]
+    assert r["leaf_norm_rel"][worst] <= SMALL_TOL["leaf_norm_rel"], (
+        worst, r["leaf_norm_rel"][worst])
+    for k, e in r["leaf_l2_rel"].items():
         assert e <= SMALL_TOL["leaf_l2_rel"], (k, e)
 
 
@@ -432,12 +404,14 @@ def test_small_steps_live_match_stitchax():
     for k in saved:
         np.testing.assert_allclose(saved[k], ref[k], rtol=1e-6, atol=1e-12,
                                    err_msg=k)
+    from held_to_stitchax import l2_rel
+
     trees, context = small_trees()
     got, grads, _ = port_steps(ref, trees, context, *configs(SMALL_W))
-    check_metrics(got, ref, SMALL_TOL)
-    floor = {s: 1e-6 * float(ref[f"metric/{s}_grad_norm"]) for s in STEPS}
-    err = {k: float(np.linalg.norm(grads[k] - g))
-           / (float(np.linalg.norm(g)) + floor[_step_of(k)])
+    check_metrics(readings(got, grads, ref, "small"), SMALL_TOL)
+    floor = {s: 1e-6 * float(ref[f"metric/{s}_grad_norm"])
+             for s in ("vae", "diffusion")}
+    err = {k: l2_rel(grads[k], g, floor[_step_of(k)])
            for k, g in ref["all_grads"].items()}
     worst = max(err, key=err.get)
     print(worst, err[worst])
@@ -462,11 +436,12 @@ def test_full_size_steps_match_the_reference():
     ref = _load(REFERENCE)
     trees, context = full_trees()
     got, grads, updated = port_steps(ref, trees, context, *configs(48))
-    norms, l2 = leaf_errors(grads, ref, "full")
-    print(got, max(norms.values()), max(l2.values()))
-    check_metrics(got, ref, FULL_TOL)
-    assert max(norms.values()) <= FULL_TOL["leaf_norm_rel"]
-    assert max(l2.values()) <= FULL_TOL["leaf_l2_rel"]
+    r = readings(got, grads, ref, "full")
+    norm, l2 = max(r["leaf_norm_rel"].values()), max(r["leaf_l2_rel"].values())
+    print(got, norm, l2)
+    check_metrics(r, FULL_TOL)
+    assert norm <= FULL_TOL["leaf_norm_rel"]
+    assert l2 <= FULL_TOL["leaf_l2_rel"]
     print(check_updated(updated, ref, _flat(trees), FULL_UPDATE_TOL))
 
 

@@ -18,6 +18,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 
 from stub_backbones import OFFSETS, W_FLOW, stub_flow_fn, stub_homo_fn  # noqa: E402
 
+from held_to_stitchax import psnr  # noqa: E402
 from stitchax.align.adapter import AlignConfig as JAlign  # noqa: E402
 from stitchax.align.adapter import bucket_canvas as j_bucket  # noqa: E402
 from stitchax.align.adapter import stitch_model_step as j_model_step  # noqa: E402
@@ -88,11 +89,6 @@ def _jax_stitch(img1, img2, acfg, tcfg, homo_fn, flow_fn, flow_pair_fn=None):
     return {k: np.asarray(v) for k, v in res.items()}, (out_h, out_w)
 
 
-def _psnr(a, b):
-    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return np.inf if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
-
-
 def _torch_stitch(stitcher, img1, img2):
     to = lambda a: torch.from_numpy(a)[None]
     res = stitcher.stitch_tensors(to(img1), to(img2))
@@ -135,8 +131,8 @@ def test_stub_stitch_matches_stitchax():
     np.testing.assert_allclose(got["control_dst"], ref["control_dst"],
                                atol=1e-3)
     assert ref["mask2"].mean() > 0.05          # img2 really contributes
-    assert _psnr(got["new_blend_image"], ref["new_blend_image"]) > 50.0
-    assert _psnr(got["output2"], ref["output2"]) > 45.0
+    assert psnr(got["new_blend_image"], ref["new_blend_image"]) > 50.0
+    assert psnr(got["output2"], ref["output2"]) > 45.0
 
 
 def test_stitcher_numpy_entry_point_crops_to_true_canvas():
@@ -204,4 +200,4 @@ def test_trained_flowformer_stitch_matches_stitchax():
     # flow through 12 recurrent iterations in fp32: sub-pixel agreement
     diff = np.abs(got["flow"] - ref["flow"])
     assert diff.max() < 0.05 and diff.mean() < 5e-3, (diff.max(), diff.mean())
-    assert _psnr(got["new_blend_image"], ref["new_blend_image"]) > 40.0
+    assert psnr(got["new_blend_image"], ref["new_blend_image"]) > 40.0

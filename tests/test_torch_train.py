@@ -184,62 +184,47 @@ SMALL_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "leaf_norm_rel": 5e-3,
              "every_leaf_l2_rel": {"homo": 2e-4, "flow": 1.5e-2}}
 
 
-def check_metrics(got, ref, tol):
-    for k in ("total", "photometric", "rigid", "border"):
-        r = float(ref[f"metric/{k}"])
-        assert abs(got[k] - r) <= tol["loss_rel"] * abs(r), (k, got[k], r)
-    r = float(ref["metric/grad_norm"])
-    assert abs(got["grad_norm"] - r) <= tol["grad_norm_rel"] * r
-
-
-def norm_errors(grads, ref, floor):
-    """{key: |norm - stitchax's norm| / (stitchax's + floor)} over every
-    gradient leaf of the reference."""
-    keys = [k[len("gradnorm/"):] for k in ref if k.startswith("gradnorm/")]
-    assert sorted(keys) == sorted(grads)
-    return {k: abs(float(np.linalg.norm(grads[k]))
-                   - float(ref[f"gradnorm/{k}"]))
-            / (float(ref[f"gradnorm/{k}"]) + floor) for k in keys}
-
-
-def l2_errors(got, ref, keys, floor):
-    """{key: |got - ref|_2 / (|ref|_2 + floor)}: `floor` keeps leaves whose
-    gradient vanishes (an attention key's bias) from reading as noise."""
-    return {k: float(np.linalg.norm(got[k] - ref[k]))
-            / (float(np.linalg.norm(ref[k])) + floor) for k in keys}
+def check_metrics(readings, tol):
+    """The losses and grad_norm of `held_to_stitchax.step_readings`."""
+    for k, e in readings["metric_rel"].items():
+        lim = tol["grad_norm_rel" if k == "grad_norm" else "loss_rel"]
+        assert e <= lim, (k, e)
 
 
 def check_updated(got, ref, start, lr0):
-    """The tensors after one AdamW step. Its first step is ~lr0 sign(g)
+    """The kept tensors after one AdamW step. Its first step is ~lr0 sign(g)
     except where |g| is near eps = 1e-8, so the elements are held in units
     of lr0: each within 0.5 lr0 (+1e-6 of the tensor's scale), and those
     off by more than 0.01 lr0 under 10% of them (readings: at the small
     size 0.025 lr0 and 6.7e-5; at full size 0.179 lr0 and 0.6% on the CPU,
     0.011 lr0 and 1.0% on the card); and every tensor moved. Returns the
     worst element and that share."""
-    worst, off, n = 0.0, 0, 0
-    for k, r in ref.items():
-        d = np.abs(got[k] - r)
-        assert d.max() <= 0.5 * lr0 + 1e-6 * np.abs(r).max(), k
-        worst = max(worst, float(d.max()) / lr0)
-        off += int((d > 0.01 * lr0).sum())
-        n += d.size
-        assert np.any(got[k] != start[k]), k
-    assert off <= 0.1 * n, (off, n)
-    return worst, off / n
+    from held_to_stitchax import adamw_first_step
+
+    u = adamw_first_step(got, ref, start, lr0)
+    assert u["over_scale_lr0"] <= 0.5, u
+    assert not u["unmoved"], u["unmoved"]
+    assert u["off_share"] <= 0.1, u["off_share"]
+    return u["worst_lr0"], u["off_share"]
+
+
+def small_readings(small_step):
+    """The port's small step read against stitchax's committed one."""
+    from held_to_stitchax import step_readings
+
+    ref, (tm, tg, _) = small_step
+    return step_readings(tm, tg, ref)
 
 
 def test_small_step_losses_and_grad_norm(small_step):
-    ref, (tm, _, _) = small_step
-    check_metrics(tm, ref, SMALL_TOL)
+    check_metrics(small_readings(small_step), SMALL_TOL)
 
 
 @pytest.mark.parametrize("model", ["homo", "flow"])
 def test_small_step_gradient_norms_match(small_step, model):
     """Every trained tensor's gradient norm (BatchNorm statistics
     included) against stitchax's."""
-    ref, (tm, tg, _) = small_step
-    err = norm_errors(tg, ref, 1e-6 * float(ref["metric/grad_norm"]))
+    err = small_readings(small_step)["leaf_norm_rel"]
     err = {k: e for k, e in err.items() if k.startswith(f"['{model}']")}
     worst = max(err, key=err.get)
     assert err[worst] <= SMALL_TOL["leaf_norm_rel"], (worst, err[worst])
@@ -248,11 +233,7 @@ def test_small_step_gradient_norms_match(small_step, model):
 def test_small_step_gradients_match(small_step):
     """Whole gradients of the kept leaves: a twins qkv, the GRU's biases,
     the homography head and every BatchNorm statistic."""
-    ref, (_, tg, _) = small_step
-    keys = [k[len("grad/"):] for k in ref if k.startswith("grad/")]
-    err = l2_errors(tg, {k: ref[f"grad/{k}"] for k in keys}, keys,
-                    1e-6 * float(ref["metric/grad_norm"]))
-    for k, e in err.items():
+    for k, e in small_readings(small_step)["leaf_l2_rel"].items():
         assert e <= SMALL_TOL["leaf_l2_rel"][k[2:6]], (k, e)
 
 
@@ -270,9 +251,7 @@ def test_small_step_trains_batch_statistics(small_step):
 def test_small_step_update_matches(small_step):
     ref, (_, _, tp) = small_step
     homo, flow = small_models()
-    start = _flat({"homo": homo, "flow": flow})
-    keys = [k[len("updated/"):] for k in ref if k.startswith("updated/")]
-    check_updated(tp, {k: ref[f"updated/{k}"] for k in keys}, start,
+    check_updated(tp, ref, _flat({"homo": homo, "flow": flow}),
                   SMALL_LR / 25)
 
 
@@ -306,9 +285,11 @@ def test_training_forward_predictions_match(small_step):
 def test_small_step_live_matches_stitchax():
     """The committed small reference regenerated live, and every leaf's
     whole gradient held to it (~1.5 min: stitchax's jitted step)."""
+    from held_to_stitchax import l2_rel, step_readings
+
     ref = small_reference()
     tm, tg, tp = small_port_step()
-    check_metrics(tm, ref, SMALL_TOL)
+    check_metrics(step_readings(tm, tg, ref), SMALL_TOL)
     with np.load(SMALL_REFERENCE) as saved:
         assert str(saved["name"]) == str(ref["name"])
         for k in saved.files:
@@ -318,8 +299,8 @@ def test_small_step_live_matches_stitchax():
     grads = ref["all_grads"]
     floor = 1e-6 * float(ref["metric/grad_norm"])
     for model in ("homo", "flow"):
-        keys = [k for k in grads if k.startswith(f"['{model}']")]
-        err = l2_errors(tg, grads, keys, floor)
+        err = {k: l2_rel(tg[k], g, floor) for k, g in grads.items()
+               if k.startswith(f"['{model}']")}
         worst = max(err, key=err.get)
         assert err[worst] <= SMALL_TOL["every_leaf_l2_rel"][model], (
             worst, err[worst])
@@ -770,6 +751,7 @@ FULL_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "leaf_norm_rel": 5e-3,
 def test_full_size_step_matches_the_reference():
     """The port's step at 512^2 on the CPU against stitchax's committed one
     (~1 min, ~10 GiB)."""
+    from held_to_stitchax import step_readings
     from stitchax_torch.convert import load_npz
     from stitchax_torch.models.flowformer import FlowFormerConfig
     from stitchax_torch.train import OptimConfig
@@ -782,37 +764,24 @@ def test_full_size_step_matches_the_reference():
     tm, tg, tp = port_step(tree["homo"], tree["flow"],
                            FlowFormerConfig(upsample_all=True), 512, i1, i2,
                            OptimConfig())
-    err = norm_errors(tg, ref, 1e-6 * float(ref["metric/grad_norm"]))
-    keys = [k[len("grad/"):] for k in ref if k.startswith("grad/")]
-    l2 = l2_errors(tg, {k: ref[f"grad/{k}"] for k in keys}, keys,
-                   1e-6 * float(ref["metric/grad_norm"]))
-    start = _flat({"homo": tree["homo"], "flow": tree["flow"]})
-    readings = {
-        **{f"{k}_rel": abs(tm[k] - float(ref[f"metric/{k}"]))
-           / abs(float(ref[f"metric/{k}"])) for k in tm},
-        "leaf_norm_rel": max(err.values()),
-        **{f"leaf_l2_rel_{m}": max(e for k, e in l2.items() if k[2:6] == m)
-           for m in ("homo", "flow")}}
-    print(readings)
-    check_metrics(tm, ref, FULL_TOL)
-    assert max(err.values()) <= FULL_TOL["leaf_norm_rel"], max(
-        err, key=err.get)
+    r = step_readings(tm, tg, ref)
+    l2 = r["leaf_l2_rel"]
+    print({**{f"{k}_rel": e for k, e in r["metric_rel"].items()},
+           "leaf_norm_rel": max(r["leaf_norm_rel"].values()),
+           **{f"leaf_l2_rel_{m}": max(e for k, e in l2.items()
+                                      if k[2:6] == m)
+              for m in ("homo", "flow")}})
+    check_metrics(r, FULL_TOL)
+    assert max(r["leaf_norm_rel"].values()) <= FULL_TOL["leaf_norm_rel"], \
+        r["leaf_norm_worst"]
     for k, e in l2.items():
         assert e <= FULL_TOL["leaf_l2_rel"][k[2:6]], (k, e)
-    print(check_updated(tp, {k: ref[f"updated/{k}"] for k in keys}, start,
+    print(check_updated(tp, ref, _flat({"homo": tree["homo"],
+                                        "flow": tree["flow"]}),
                         3.125e-6 / 25))
 
 
 # -------------------------------- the producer --------------------------------
-
-def _kept(grads, updated, keys):
-    out = {f"gradnorm/{k}": np.float32(np.linalg.norm(g))
-           for k, g in grads.items()}
-    for k in keys:
-        out[f"grad/{k}"] = grads[k]
-        out[f"updated/{k}"] = updated[k]
-    return out
-
 
 def small_reference():
     """stitchax at the small size, live: its step from `small_models()` on
@@ -822,6 +791,7 @@ def small_reference():
     predictions on the pair with img2 rolled by 3 px."""
     import jax.numpy as jnp
 
+    from held_to_stitchax import step_reference
     from stitchax.models import FlowFormer, FlowFormerConfig
     from stitchax.train import OptimConfig
 
@@ -833,9 +803,8 @@ def small_reference():
         OptimConfig(canonical_lr=SMALL_LR))
     keys = [*CHOSEN, *(k for k in grads if "['batch_stats']" in k
                        and k not in CHOSEN)]
-    out = {"name": np.array(name)}
-    out.update({f"metric/{k}": np.float32(v) for k, v in metrics.items()})
-    out.update(_kept(grads, updated, keys))
+    out = {"name": np.array(name),
+           **step_reference(metrics, grads, updated, keys)}
     preds, _ = FlowFormer(cfg).apply({"params": flow["params"]},
                                      jnp.asarray(i1),
                                      jnp.asarray(np.roll(i2, 3, axis=2)))
@@ -888,6 +857,7 @@ def write_reference():
     pair's name and pixel sums, the metrics, every leaf's gradient norm,
     the CHOSEN leaves' gradients and values after the update, and the hard
     thresholds' masks (`stitchax_masks`), ~0.6 MB)."""
+    from held_to_stitchax import step_reference
     from stitchax.models import FlowFormerConfig
     from stitchax.train import OptimConfig
     from stitchax_torch.convert import load_npz
@@ -903,8 +873,7 @@ def write_reference():
     out = {"name": np.array(name),
            "image_sums": np.array([i1.astype(np.int64).sum(),
                                    i2.astype(np.int64).sum()])}
-    out.update({f"metric/{k}": np.float32(v) for k, v in metrics.items()})
-    out.update(_kept(grads, updated, CHOSEN))
+    out.update(step_reference(metrics, grads, updated, CHOSEN))
     out.update(stitchax_masks({"homo": tree["homo"], "flow": tree["flow"]},
                               FlowFormerConfig(), i1, i2))
     np.savez_compressed(REFERENCE, **out)

@@ -151,6 +151,8 @@ def reference(size, batch):
     boxes and the mask, the metrics, the global and every leaf's gradient
     norm, the CHOSEN leaves' gradients and values after Adam; all the
     gradients under "all_grads" (not saved)."""
+    from held_to_stitchax import global_norm, step_reference
+
     metrics, grads, updated, mask = stitchax_step(size, batch)
     i1, i2, names = first_pairs(size, batch)
     out = {"names": np.array(names), "size": np.int32(size),
@@ -159,14 +161,8 @@ def reference(size, batch):
            "mask": np.packbits(mask.astype(bool)),
            **{f"box/{k}": v for k, v in zip(
                ("x0", "y0", "w", "h"), stitchax_masks(batch, size)[0])}}
-    out.update({f"metric/{k}": np.float32(v) for k, v in metrics.items()})
-    out["metric/grad_norm"] = np.float32(np.sqrt(sum(
-        float(np.sum(g.astype(np.float64) ** 2)) for g in grads.values())))
-    out.update({f"gradnorm/{k}": np.float32(np.linalg.norm(g))
-                for k, g in grads.items()})
-    for k in CHOSEN:
-        out[f"grad/{k}"] = grads[k]
-        out[f"updated/{k}"] = updated[k]
+    out.update(step_reference({**metrics, "grad_norm": global_norm(grads)},
+                              grads, updated, CHOSEN))
     if size == SMALL:          # the tier-1 tests read the inputs from here
         out.update(image1=i1, image2=i2)
     out["all_grads"] = grads
@@ -248,27 +244,20 @@ SMALL_TOL = {"loss_rel": 5e-6, "grad_norm_rel": 1e-4, "leaf_norm_rel": 2e-3,
              "leaf_l2_rel": 1e-3}
 
 
-def check_metrics(got, ref, tol):
-    for k in (*LOSSES, "grad_norm"):
-        r = float(ref[f"metric/{k}"])
+def readings(got, grads, ref):
+    """`held_to_stitchax.step_readings` of the port's step, whose 506
+    leaves are stitchax's."""
+    from held_to_stitchax import step_readings
+
+    r = step_readings(got, grads, ref)
+    assert len(r["leaf_norm_rel"]) == 506
+    return r
+
+
+def check_metrics(r, tol):
+    for k, e in r["metric_rel"].items():
         lim = tol["grad_norm_rel" if k == "grad_norm" else "loss_rel"]
-        assert abs(got[k] - r) <= lim * abs(r), (k, got[k], r)
-
-
-def leaf_errors(grads, ref):
-    """({leaf: |norm - stitchax's| / (stitchax's + floor)} over every leaf,
-    {kept leaf: relative L2 error of its gradient}); the floor, 1e-6 of the
-    global norm, keeps leaves whose gradient vanishes from reading as
-    noise."""
-    floor = 1e-6 * float(ref["metric/grad_norm"])
-    keys = [k[len("gradnorm/"):] for k in ref if k.startswith("gradnorm/")]
-    assert sorted(keys) == sorted(grads) and len(keys) == 506
-    norms = {k: abs(float(np.linalg.norm(grads[k]))
-                    - float(ref[f"gradnorm/{k}"]))
-             / (float(ref[f"gradnorm/{k}"]) + floor) for k in keys}
-    l2 = {k: float(np.linalg.norm(grads[k] - ref[f"grad/{k}"]))
-          / (float(np.linalg.norm(ref[f"grad/{k}"])) + floor) for k in CHOSEN}
-    return norms, l2
+        assert e <= lim, (k, e)
 
 
 # the kept leaves after one Adam step, in units of lr. Adam's first step is
@@ -285,35 +274,29 @@ def check_updated(got, ref, start, lr, tol=UPDATE_TOL):
     within tol["where_g_large_lr"] lr, elsewhere within 2 lr; the share
     off by more than 0.01 lr within tol["off_share"]. Returns (the worst
     element where |g| > 1e-6, the worst, the share), in lr."""
-    large = worst = 0.0
-    off = n = 0
-    for k in CHOSEN:
-        d = np.abs(got[k] - ref[f"updated/{k}"]) / lr
-        big = np.abs(ref[f"grad/{k}"]) > 1e-6
-        if big.any():
-            large = max(large, float(d[big].max()))
-        worst = max(worst, float(d.max()))
-        off += int((d > 0.01).sum())
-        n += d.size
-        assert np.any(got[k] != start[k]), k
-    assert large <= tol["where_g_large_lr"], large
-    assert worst <= 2.0 + 1e-3, worst
-    assert off <= tol["off_share"] * n, (off, n)
-    return large, worst, off / n
+    from held_to_stitchax import adam_step
+
+    u = adam_step(got, ref, start, lr)
+    assert not u["unmoved"], u["unmoved"]
+    assert u["g_large_lr"] <= tol["where_g_large_lr"], u["g_large_lr"]
+    assert u["worst_lr"] <= 2.0 + 1e-3, u["worst_lr"]
+    assert u["off_share"] <= tol["off_share"], u["off_share"]
+    return u["g_large_lr"], u["worst_lr"], u["off_share"]
 
 
 def test_small_step_losses_and_grad_norm(small_step):
-    ref, (got, *_) = small_step
-    check_metrics(got, ref, SMALL_TOL)
+    ref, (got, grads, *_) = small_step
+    check_metrics(readings(got, grads, ref), SMALL_TOL)
 
 
 def test_small_step_gradients_match(small_step):
     """Every leaf's gradient norm, and the kept leaves' whole gradients."""
-    ref, (_, grads, *_) = small_step
-    norms, l2 = leaf_errors(grads, ref)
-    worst = max(norms, key=norms.get)
-    assert norms[worst] <= SMALL_TOL["leaf_norm_rel"], (worst, norms[worst])
-    for k, e in l2.items():
+    ref, (got, grads, *_) = small_step
+    r = readings(got, grads, ref)
+    worst = r["leaf_norm_worst"]
+    assert r["leaf_norm_rel"][worst] <= SMALL_TOL["leaf_norm_rel"], (
+        worst, r["leaf_norm_rel"][worst])
+    for k, e in r["leaf_l2_rel"].items():
         assert e <= SMALL_TOL["leaf_l2_rel"], (k, e)
 
 
@@ -339,12 +322,12 @@ def test_small_step_live_matches_stitchax():
             else:
                 np.testing.assert_allclose(saved[k], ref[k], rtol=1e-6,
                                            atol=1e-12, err_msg=k)
+    from held_to_stitchax import l2_rel
+
     got, grads, *_ = port_step(ref)
-    check_metrics(got, ref, SMALL_TOL)
-    all_grads = ref["all_grads"]
+    check_metrics(readings(got, grads, ref), SMALL_TOL)
     floor = 1e-6 * float(ref["metric/grad_norm"])
-    err = {k: float(np.linalg.norm(grads[k] - g))
-           / (float(np.linalg.norm(g)) + floor) for k, g in all_grads.items()}
+    err = {k: l2_rel(grads[k], g, floor) for k, g in ref["all_grads"].items()}
     worst = max(err, key=err.get)
     print(worst, err[worst])
     assert err[worst] <= 1.5e-2, (worst, err[worst])
@@ -367,11 +350,12 @@ def test_full_size_step_matches_the_reference():
     with np.load(REFERENCE) as f:
         ref = {k: f[k] for k in f.files}
     got, grads, updated, start, *_ = port_step(ref)
-    norms, l2 = leaf_errors(grads, ref)
-    print(got, max(norms.values()), max(l2.values()))
-    check_metrics(got, ref, FULL_TOL)
-    assert max(norms.values()) <= FULL_TOL["leaf_norm_rel"]
-    assert max(l2.values()) <= FULL_TOL["leaf_l2_rel"]
+    r = readings(got, grads, ref)
+    norm, l2 = max(r["leaf_norm_rel"].values()), max(r["leaf_l2_rel"].values())
+    print(got, norm, l2)
+    check_metrics(r, FULL_TOL)
+    assert norm <= FULL_TOL["leaf_norm_rel"]
+    assert l2 <= FULL_TOL["leaf_l2_rel"]
     print(check_updated(updated, ref, start, LR,
                         {"where_g_large_lr": 7e-3, "off_share": 2e-2}))
 
