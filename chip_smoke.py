@@ -100,7 +100,15 @@ Phases, each printing one JSON line before the next begins:
                          stitchax's jitted step on the CPU
                          (tests/torch_reference/
                          transref_train_stitchax_fp32.npz): losses,
-                         gradient norms, kept leaves whole and after Adam
+                         gradient norms, kept leaves whole and after Adam;
+                         the step's K7 launches (26 forward, 13 of them
+                         under grad, 12 input gradients), counted by shape
+  kernels_transref       K7 at the TransRef cell's shapes (batch 32,
+                         512^2): each shape of the VGG's convolutions
+                         forward and its input gradient against their
+                         plain versions, timed beside their bounds
+                         (3xTF32, and the CUDA cores' fp32 rate) and
+                         cuDNN's fp32, weighed by the launches counted
   transref_train         python -m stitchax_torch.train_transref at its
                          defaults (512^2, batch 4) for 3 steps on the
                          committed split (in a temporary directory outside
@@ -169,6 +177,8 @@ optionally writing a Chrome trace.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
 import json
 import math
@@ -225,6 +235,10 @@ TOL = {
     # each 1e-6 to 3e-6 from an fp64 convolution on an H100 at K = 2304,
     # outputs up to ~2
     "conv3x3": 2e-5,
+    # K7 (3xTF32, each stage of 32 channels summed apart, then in fp32)
+    # and cuDNN in fp32, relative to the largest output: each 3e-7 to
+    # 2e-6 from an fp64 convolution on an H100 at K up to 4608
+    "conv3x3_wide": 2e-5,
     # K4 in fp32 (3xTF32, as K1)
     "window_attention_fp32": 2e-5,
     # every product and sum rounded on its own in both: bit-equal
@@ -590,7 +604,8 @@ EVAL_CONV_CALLS = 2 * DECODER_ITERS
 EXPECT_EVAL_LAUNCHES = {"gsa_attention": 18, "cost_lookup": 24,
                         "window_attention": 18, "tps_grid": 0,
                         "conv3x3": len(CONV_LAYERS) * EVAL_CONV_CALLS,
-                        "conv3x3_input_grad": 0, "pair_scores": 1}
+                        "conv3x3_input_grad": 0, "pair_scores": 1,
+                        "conv3x3_wide": 0, "conv3x3_wide_input_grad": 0}
 EVAL_REPORT_KEYS = ("avg_psnr", "avg_ssim", "easy_psnr", "mid_psnr",
                     "hard_psnr", "easy_ssim", "mid_ssim", "hard_ssim",
                     "num_pairs")
@@ -1984,7 +1999,8 @@ EXPECT_TRAIN_LAUNCHES = {
     "gsa_attention": 18, "cost_lookup": 24, "window_attention": 18,
     "tps_grid": 0,
     "conv3x3": len(CONV_LAYERS) * FLOW_CALLS_PER_STEP * DECODER_ITERS,
-    "conv3x3_input_grad": len(CONV_LAYERS) * DECODER_ITERS, "pair_scores": 0}
+    "conv3x3_input_grad": len(CONV_LAYERS) * DECODER_ITERS, "pair_scores": 0,
+    "conv3x3_wide": 0, "conv3x3_wide_input_grad": 0}
 # of those, the forward under autograd's (the kernels' autograd Functions,
 # library.grad_launches): the calls of the tables above, once each. The
 # per-step forward / backward ms are weighted by these tables, so the step
@@ -1994,7 +2010,8 @@ EXPECT_TRAIN_GRAD_LAUNCHES = {
     "cost_lookup": DECODER_ITERS,
     "window_attention": sum(c[-1] for c in TRAIN_WINDOW_CALLS),
     "tps_grid": 0, "conv3x3": len(CONV_LAYERS) * DECODER_ITERS,
-    "conv3x3_input_grad": 0, "pair_scores": 0}
+    "conv3x3_input_grad": 0, "pair_scores": 0, "conv3x3_wide": 0,
+    "conv3x3_wide_input_grad": 0}
 # the autograd Function's gradients against the plain version's autograd
 # on the same inputs: both differentiate the plain version at the same
 # saved inputs, so they differ only by the order of atomic adds (K3's
@@ -2618,6 +2635,126 @@ TRANSREF_TRAIN_STITCHAX_TOL = {
 }
 
 
+# K7 in a TransRef step: the VGG's 13 convolutions (11 layers, conv5_1 twice
+# more) on the prediction under autograd and on the target without, and
+# the input gradients of the prediction's but the last: relu5_3 feeds no
+# term of the loss, so autograd runs no backward of its convolution
+TRANSREF_K7_LAUNCHES = (26, 13, 12)
+# the TransRef cell's batch (train_transref.b32)
+TRANSREF_CELL_BATCH = 32
+
+
+def vgg_conv_calls(side=TRAIN_SIZE):
+    """The VGG16's convolutions on one image batch: (layer, map side, Cin,
+    Cout), conv5_1 twice more at a half and a quarter of its side."""
+    from stitchax_torch.models.vgg import VGG16_LAYOUT
+
+    calls, cin = [], 3
+    for name, ch, pool in VGG16_LAYOUT:
+        side //= 2 if pool else 1
+        calls.append((name, side, cin, ch))
+        cin = ch
+    return calls + [("conv5_1", side // 2, 512, 512),
+                    ("conv5_1", side // 4, 512, 512)]
+
+
+@contextlib.contextmanager
+def k7_calls():
+    """Counts K7's launches while open, by (pass, map side, Cin, Cout) from
+    the weight each launch takes, by wrapping the wrapper's `_launch`:
+    yields the Counter."""
+    from stitchax_torch.ops.kernels import conv3x3_wide as k7
+
+    calls, launch = collections.Counter(), k7._launch
+
+    def counted(x, weight, bias, relu=True, input_grad=False, n_out=0):
+        out = launch(x, weight, bias, relu, input_grad, n_out)
+        calls["input_grad" if input_grad else "forward", x.shape[1],
+              weight.shape[1], weight.shape[0]] += 1
+        return out
+
+    k7._launch = counted
+    try:
+        yield calls
+    finally:
+        k7._launch = launch
+
+
+def transref_vgg_rows(step_calls):
+    """K7 at the TransRef cell's shapes (batch 32, 512^2): each shape of the
+    VGG's 13 convolutions (conv3_2 and conv3_3 share one, as conv4_2 and
+    conv4_3 do), forward and input gradient, against its plain version
+    (cuDNN fp32, TF32 off), ms and device ms by events after an L2 flush,
+    its bound at fp32's accuracy (3xTF32) and at the CUDA cores' fp32
+    rate, cuDNN's F.conv2d and input gradient as the library. Each call
+    weighs as often as a captured TransRef step launched it (`step_calls`,
+    `k7_calls`' Counter; the step's batch does not change the count).
+    Returns {summary per step} and one entry per call."""
+    import torch
+    import torch.nn.functional as F
+
+    from stitchax_torch.ops.kernels import conv3x3_wide as k7
+    from stitchax_torch.utils.precision import fp32_exact
+
+    fp32_exact()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    B = TRANSREF_CELL_BATCH
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "fp32_core_bound_ms")
+    step = dict.fromkeys(keys, 0.0)
+    step.update(launches_per_step=0, input_grad_launches_per_step=0,
+                max_rel_err=0.0, tol=TOL["conv3x3_wide"])
+    detail, shapes = [], {}
+    for name, side, cin, cout in vgg_conv_calls():
+        shapes.setdefault((side, cin, cout), []).append(name)
+    unknown = sorted(k for k in step_calls if k[1:] not in shapes)
+    if unknown:
+        raise RuntimeError(f"K7 ran calls that are not the VGG's in the "
+                           f"TransRef step: {unknown}")
+    for (side, cin, cout), layers in shapes.items():
+        x = torch.randn(B, side, side, cin, device=dev, generator=g)
+        x = x.clamp(-1, 1) if cin == 3 else x.relu()
+        w = torch.randn(cout, cin, 3, 3, device=dev, generator=g) * (
+            2.0 / (9 * cin)) ** 0.5
+        b = 0.01 * torch.randn(cout, device=dev, generator=g)
+        gy = torch.randn(B, side, side, cout, device=dev, generator=g)
+        xn = x.permute(0, 3, 1, 2)
+        runs = {"forward": (lambda: k7.conv3x3_wide_relu(x, w, b),
+                            lambda: k7.conv3x3_wide_relu_plain(x, w, b),
+                            lambda: F.conv2d(xn, w, b, padding=1)),
+                "input_grad": (lambda: k7.input_grad(gy, w),
+                               lambda: k7.input_grad_plain(gy, w),
+                               lambda: k7.input_grad_plain(gy, w))}
+        for kind, (kern, plain, lib) in runs.items():
+            n = step_calls[kind, side, cin, cout]
+            want = plain()
+            e = ((kern() - want).abs().max() / want.abs().max()).item()
+            del want
+            entry = {"kernel": "conv3x3_wide", "layers": layers,
+                     "pass": kind,
+                     "B": B, "H": side, "W": side, "Cin": cin, "Cout": cout,
+                     "max_rel_err": e, "tol": TOL["conv3x3_wide"],
+                     "ms": cuda_time(kern, iters=5),
+                     "device_ms": device_ms(kern, iters=5),
+                     "plain_ms": cuda_time(plain, iters=2, warmup=1),
+                     "library": "cuDNN fp32 (TF32 off): F.conv2d, "
+                                "conv2d_input",
+                     "library_ms": cuda_time(lib, iters=2, warmup=1),
+                     "library_device_ms": device_ms(lib, iters=2),
+                     **conv3x3_bound(B, side, side, cin, cout),
+                     "calls_per_step": n}
+            detail.append(entry)
+            for k in keys:
+                step[k] += n * entry[k]
+            step["max_rel_err"] = max(step["max_rel_err"], e)
+            step["launches_per_step" if kind == "forward"
+                 else "input_grad_launches_per_step"] += n
+        del x, w, b, gy, xn
+    torch.cuda.empty_cache()
+    return step, detail
+
+
 def vgg_he_params(seed=TRANSREF_VGG_SEED):
     """flax VGG16Features params, kernels ~ N(0, 2 / fan_in), biases
     ~ 0.01 N, from numpy (tests/test_torch_vgg.py's `vgg_params`, which
@@ -2681,7 +2818,7 @@ def transref_train_vs_stitchax_phase():
     and stitchax's holes (the reference's boxes), against stitchax's jitted
     step (TRANSREF_TRAIN_REFERENCE): the losses, the global and every
     leaf's gradient norm, the kept leaves' whole gradients and their
-    values after Adam."""
+    values after Adam. Returns the step's K7 launches by call (`k7_calls`)."""
     import torch
 
     from stitchax_torch.ops.kernels import library
@@ -2705,9 +2842,11 @@ def transref_train_vs_stitchax_phase():
     want_mask = np.unpackbits(ref["mask"])[:mask.numel()].reshape(
         tuple(mask.shape)).astype(bool)
     library.reset_launches()
-    metrics, grads = step.loss_and_grads(state, gt, img2, mask)
-    torch.cuda.synchronize()
+    with k7_calls() as calls:
+        metrics, grads = step.loss_and_grads(state, gt, img2, mask)
+        torch.cuda.synchronize()
     launches = dict(library.launches)
+    grad_launches = dict(library.grad_launches)
     updates, _ = tx.update(grads, state.opt_state, state.params)
     apply_updates(state.params, updates)
     ct = conv_transpose_names(model)
@@ -2724,7 +2863,7 @@ def transref_train_vs_stitchax_phase():
                                   != want_mask).sum()),
            "metrics": {k: float(v) for k, v in metrics.items()},
            "grad_norm": g_norm, "launches_per_step": launches,
-           "leaves": len(grads)}
+           "grad_launches_per_step": grad_launches, "leaves": len(grads)}
     res["stitchax_metrics"] = {k: float(ref[f"metric/{k}"])
                                for k in (*res["metrics"], "grad_norm")}
     r = held.step_readings({**res["metrics"], "grad_norm": g_norm}, grads,
@@ -2742,10 +2881,22 @@ def transref_train_vs_stitchax_phase():
         raise RuntimeError("transref_train_vs_stitchax: the holes differ "
                            "from stitchax's, a kept leaf did not move, or "
                            "an element moved by more than 2 lr")
+    by_pass = {kind: sum(n for k, n in calls.items() if k[0] == kind)
+               for kind in ("forward", "input_grad")}
+    if (launches["conv3x3_wide"], grad_launches["conv3x3_wide"],
+            launches["conv3x3_wide_input_grad"]) != TRANSREF_K7_LAUNCHES or (
+            by_pass["forward"], by_pass["input_grad"]) != (
+            launches["conv3x3_wide"], launches["conv3x3_wide_input_grad"]):
+        emit(res)
+        raise RuntimeError(f"transref_train_vs_stitchax: K7 launches "
+                           f"(forward, under grad, input gradient) are not "
+                           f"{TRANSREF_K7_LAUNCHES}, or not those counted "
+                           f"by call ({by_pass})")
     _check(res, dict(TRANSREF_TRAIN_STITCHAX_TOL),
            "transref_train_vs_stitchax")
     del state, step, model, grads
     torch.cuda.empty_cache()
+    return calls
 
 
 def transref_train_phase():
@@ -4064,7 +4215,18 @@ def main() -> int:
     step_launches = train_vs_stitchax_phase()
     train_rows = kernels_backward_phase(smi, *step_launches)
     train_phase()
-    transref_train_vs_stitchax_phase()
+    k7_step, k7_detail = transref_vgg_rows(transref_train_vs_stitchax_phase())
+    emit({"phase": "kernels_transref", "card": smi, "calls": k7_detail,
+          "per_step": k7_step,
+          "ok": k7_step["max_rel_err"] <= k7_step["tol"]})
+    if k7_step["max_rel_err"] > k7_step["tol"]:
+        raise RuntimeError("K7 disagrees with its plain version at the "
+                           "TransRef cell's shapes")
+    # K7 runs the TransRef trainer's VGG only: no row of the stitches
+    rows.append({"name": "conv3x3_wide", "route": "cuda",
+                 "source": "stitchax_torch/csrc/conv3x3_wide.cu",
+                 "replaces": None, "launches": 0,
+                 "transref_train": k7_step})
     transref_train_phase()
     sd_train_vs_stitchax_phase()
     sd_train_phase()

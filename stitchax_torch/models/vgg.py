@@ -7,8 +7,11 @@ relu5_2 and relu5_3 re-apply the relu5_1 block (2x2 max pool, conv5_1,
 ReLU) instead of conv5_2 / conv5_3, which therefore do not exist here. The
 inputs are raw [-1, 1] images with no ImageNet normalisation, as stitchax
 feeds them. Pools floor odd sizes (flax's VALID `max_pool`); relu5_3 is
-1/64 of the input side. The convolutions run on NCHW views of the NHWC
-tensors (channels-last memory), as the port's `layers.Conv` does.
+1/64 of the input side. The activations are NHWC throughout: on a card
+every convolution, its input gradient too, runs on K7
+(`ops/kernels/conv3x3_wide.py`); on the CPU its plain version runs
+F.conv2d on NCHW views of the NHWC tensors (channels-last memory), as the
+port's `layers.Conv` does, and the pools take the same views.
 
 `load_torchvision_features` loads a torchvision vgg16 state dict's
 `features.*` entries (OIHW already: no transpose) at indices 0, 2, 5, 7,
@@ -24,6 +27,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.kernels.conv3x3_wide import conv3x3_wide_relu
 
 # (name, out_channels, pool_before), torchvision vgg16.features' order
 VGG16_LAYOUT = [
@@ -62,19 +67,24 @@ class VGG16Features(nn.Module):
             conv.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = x.permute(0, 3, 1, 2)
-        feats = {}
-        for name, _, pool in VGG16_LAYOUT:
-            if pool:
-                x = F.max_pool2d(x, 2)
-            x = F.relu(getattr(self, name)(x))
+        def conv(name, h):
+            c = getattr(self, name)
+            return conv3x3_wide_relu(h, c.weight, c.bias)
+
+        def pool(h):
+            return F.max_pool2d(h.permute(0, 3, 1, 2), 2).permute(
+                0, 2, 3, 1).contiguous()
+
+        x, feats = x.contiguous(), {}
+        for name, _, pooled in VGG16_LAYOUT:
+            x = conv(name, pool(x) if pooled else x)
             feats["relu" + name[4:]] = x
         # stitchax's quirk (its vgg.py:49-54): relu5_2 / relu5_3 re-apply
         # the relu5_1 block
         for name in ("relu5_2", "relu5_3"):
-            x = F.relu(self.conv5_1(F.max_pool2d(x, 2)))
+            x = conv("conv5_1", pool(x))
             feats[name] = x
-        return {k: v.permute(0, 2, 3, 1) for k, v in feats.items()}
+        return feats
 
 
 def load_torchvision_features(module: VGG16Features, state_dict

@@ -36,7 +36,8 @@ FLOAT32, BFLOAT16 = 0, 1
 launches: Dict[str, int] = {"gsa_attention": 0, "cost_lookup": 0,
                             "tps_grid": 0, "window_attention": 0,
                             "conv3x3": 0, "conv3x3_input_grad": 0,
-                            "pair_scores": 0}
+                            "pair_scores": 0, "conv3x3_wide": 0,
+                            "conv3x3_wide_input_grad": 0}
 # of those, the launches made by an autograd Function's forward (under grad)
 grad_launches: Dict[str, int] = dict(launches)
 
@@ -140,11 +141,14 @@ def load_library() -> ctypes.CDLL:
     lib.stx_window_attention.argtypes = [vp] * 7 + [ci] * 6 + [cl] * 5 + [
         ci, vp]
     lib.stx_conv3x3.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+    lib.stx_conv3x3_wide.argtypes = [vp] * 5 + [ci] * 9 + [vp]
+    lib.stx_conv3x3_wide_scratch.argtypes = [ci, ci]
+    lib.stx_conv3x3_wide_scratch.restype = ctypes.c_longlong
     lib.stx_pair_scores.argtypes = ([vp] + [cl] * 4) * 2 + [vp] + [cl] * 3 \
         + [ci] * 3 + [cd] * 3 + [vp] * 4
     for fn in (lib.stx_gsa_attention, lib.stx_cost_lookup, lib.stx_tps_grid,
                lib.stx_window_attention, lib.stx_conv3x3,
-               lib.stx_pair_scores):
+               lib.stx_pair_scores, lib.stx_conv3x3_wide):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from stitchax_torch.ops.kernels import conv3x3 as tconv
+from stitchax_torch.ops.kernels import conv3x3_wide as tk7
 from stitchax_torch.ops.kernels import cost_lookup as tcl
 from stitchax_torch.ops.kernels import gsa_attention as tgsa
 from stitchax_torch.ops.kernels import library
@@ -171,7 +172,8 @@ def test_wrappers_count_launches(cuda):
     assert library.launches == {"gsa_attention": 1, "cost_lookup": 1,
                                 "tps_grid": 0, "window_attention": 1,
                                 "conv3x3": 1, "conv3x3_input_grad": 0,
-                                "pair_scores": 0}
+                                "pair_scores": 0, "conv3x3_wide": 0,
+                                "conv3x3_wide_input_grad": 0}
     # no input needs a gradient: none of them went through autograd
     assert library.grad_launches == dict.fromkeys(library.launches, 0)
 
@@ -572,6 +574,195 @@ def test_motion_encoder_takes_k5_in_fp32_only(cuda):
         torch.testing.assert_close(got, want, atol=CONV_TOL, rtol=0)
         enc.bfloat16()(flow.bfloat16(), corr.bfloat16())
     assert library.launches["conv3x3"] == 3
+
+
+# ------------------------------- K7 ------------------------------------------
+
+# the VGG16's 11 convolutions (Cin, Cout), conv1_1's image padded to 4
+# channels for the kernel
+VGG_LAYERS = [(3, 64), (64, 64), (64, 128), (128, 128), (128, 256),
+              (256, 256), (256, 256), (256, 512), (512, 512), (512, 512),
+              (512, 512)]
+# (B, H, W): odd sides, sides under and across a tile's 16 x 8 and 16 x 16
+# pixel boxes, the map's edges in every tile
+VGG_MAPS = [(2, 13, 21), (1, 17, 33), (3, 8, 8), (1, 1, 5)]
+
+
+def _vgg_inputs(dev, B, H, W, Cin, Cout, seed=0):
+    """A ReLU's output (the image in [-1, 1] for Cin = 3), a He-scaled
+    weight and a small bias, as the VGG's layers see them."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, H, W, Cin, generator=g)
+    x = x.clamp(-1, 1) if Cin == 3 else x.relu()
+    w = torch.randn(Cout, Cin, 3, 3, generator=g) * (2.0 / (9 * Cin)) ** 0.5
+    b = 0.01 * torch.randn(Cout, generator=g)
+    return x.to(dev), w.to(dev), b.to(dev)
+
+
+def _rel64(got, ref):
+    """max |got - ref| over max |ref|, ref in fp64."""
+    return ((got.double() - ref).abs().max() / ref.abs().max()).item()
+
+
+# K7's stage-wise sums against cuDNN's fp32 (SIMT, or FFT), both from an
+# fp64 convolution: at most twice cuDNN's error, or 2^-21 of the largest
+# output, the error of one 3xTF32 product (the lo parts cut to tf32, lo lo
+# dropped): on a 1 x 5 map most taps read the padding, cuDNN's few fp32
+# products read 1.2e-7 and K7's 2.6e-7 (an H100)
+def _k7_error_bound(cudnn_err):
+    return max(2.0 * cudnn_err, 2.0 ** -21)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W", VGG_MAPS)
+@pytest.mark.parametrize("Cin,Cout", VGG_LAYERS)
+def test_conv3x3_wide_matches_fp64_and_cudnn(cuda, Cin, Cout, B, H, W):
+    """K7 forward and input gradient at each VGG layer's channels (K = 9 Cin
+    up to 4608), against an fp64 convolution and cuDNN's fp32."""
+    x, w, b = _vgg_inputs(cuda, B, H, W, Cin, Cout, seed=Cin + Cout + H)
+    before = dict(library.launches)
+    got = tk7.conv3x3_wide_relu(x, w, b)
+    assert library.launches["conv3x3_wide"] == before["conv3x3_wide"] + 1
+    assert got.shape == (B, H, W, Cout) and got.is_contiguous()
+    ref = tk7.conv3x3_wide_relu_plain(x.double(), w.double(), b.double())
+    cudnn = tk7.conv3x3_wide_relu_plain(x, w, b)
+    assert _rel64(got, ref) <= _k7_error_bound(_rel64(cudnn, ref))
+    torch.testing.assert_close(got, cudnn, rtol=0,
+                               atol=2e-5 * cudnn.abs().max().item())
+    gy = torch.randn(B, H, W, Cout, device=cuda)
+    gx = tk7.input_grad(gy, w)
+    assert (library.launches["conv3x3_wide_input_grad"]
+            == before["conv3x3_wide_input_grad"] + 1)
+    assert gx.shape == (B, H, W, Cin)
+    gref = tk7.input_grad_plain(gy.double(), w.double())
+    gcudnn = tk7.input_grad_plain(gy, w)
+    assert _rel64(gx, gref) <= _k7_error_bound(_rel64(gcudnn, gref))
+
+
+@pytest.mark.gpu
+def test_conv3x3_wide_at_the_cells_largest_tensor(cuda):
+    """conv1_2 at the cell's batch 32 and 512^2: its input and output are
+    2^31 bytes, so offsets pass int32's range; every image's output and
+    input gradient against cuDNN's fp32."""
+    x, w, b = _vgg_inputs(cuda, 1, 512, 512, 64, 64, seed=7)
+    x = x.expand(32, -1, -1, -1) * torch.linspace(
+        0.5, 1.5, 32, device=cuda).view(32, 1, 1, 1)
+    got = tk7.conv3x3_wide_relu(x, w, b)
+    want = tk7.conv3x3_wide_relu_plain(x, w, b)
+    top = want.abs().max().item()
+    for i in (0, 15, 16, 31):             # the last images lie past 2^31 B
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=2e-5 * top)
+    del got, want
+    gx = tk7.input_grad(x, w)
+    want = tk7.input_grad_plain(x, w)
+    top = want.abs().max().item()
+    for i in (0, 15, 16, 31):
+        torch.testing.assert_close(gx[i], want[i], rtol=0, atol=2e-5 * top)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trainable", [False, True])
+@pytest.mark.parametrize("Cin,Cout", [(3, 64), (128, 256), (512, 512)])
+def test_conv3x3_wide_autograd_function(cuda, Cin, Cout, trainable):
+    """The Function against autograd over the plain version: with a frozen
+    weight (the VGG's) only the input's gradient, on K7; with a trainable
+    one the weight's and the bias's too (convolution_backward)."""
+    x, w, b = _vgg_inputs(cuda, 2, 24, 19, Cin, Cout, seed=9)
+    x.requires_grad_(True)
+    leaves = (x, w, b) if trainable else (x,)
+    for t in leaves[1:]:
+        t.requires_grad_(True)
+    g = torch.Generator().manual_seed(10)
+    g_out = torch.randn(2, 24, 19, Cout, generator=g).to(cuda)
+    # K7's and cuDNN's outputs differ by ~1e-6, so their ReLU masks may
+    # differ where the convolution is that close to 0: no gradient there
+    with torch.no_grad():
+        pre = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1)
+    g_out = g_out * (pre.permute(0, 2, 3, 1).abs() > 1e-4)
+    before, before_grad = dict(library.launches), dict(library.grad_launches)
+    out, grads, ref, ref_grads = _grads_both(
+        lambda: tk7.conv3x3_wide_relu(x, w, b),
+        lambda: tk7.conv3x3_wide_relu_plain(x, w, b), leaves, g_out)
+    # one forward, under autograd, and one input gradient: no forward
+    # recomputed in the backward
+    assert library.launches["conv3x3_wide"] == before["conv3x3_wide"] + 1
+    assert (library.grad_launches["conv3x3_wide"]
+            == before_grad["conv3x3_wide"] + 1)
+    assert (library.launches["conv3x3_wide_input_grad"]
+            == before["conv3x3_wide_input_grad"] + 1)
+    assert out.grad_fn is not None and grads[0].shape == x.shape
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=2e-5 * ref.abs().max().item())
+    for a, r in zip(grads, ref_grads):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-5 * r.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_conv3x3_wide_counts_one_launch_a_call(cuda):
+    x, w, b = _vgg_inputs(cuda, 1, 8, 8, 64, 128)
+    library.reset_launches()
+    for n in (1, 2, 3):
+        tk7.conv3x3_wide_relu(x, w, b)
+        assert library.launches["conv3x3_wide"] == n
+    tk7.input_grad(torch.randn(1, 8, 8, 128, device=cuda), w)
+    assert library.launches["conv3x3_wide_input_grad"] == 1
+    assert library.launches["conv3x3_wide"] == 3
+    assert library.grad_launches == dict.fromkeys(library.launches, 0)
+    assert library.launches["conv3x3"] == 0
+
+
+@pytest.mark.gpu
+def test_conv3x3_wide_refuses(cuda):
+    x, w, b = _vgg_inputs(cuda, 1, 8, 8, 16, 8)
+    with pytest.raises(TypeError):
+        tk7.conv3x3_wide_relu(x.bfloat16(), w.bfloat16(), b.bfloat16())
+    with pytest.raises(ValueError):             # not contiguous
+        tk7.conv3x3_wide_relu(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError):             # not 16-byte aligned
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        tk7.conv3x3_wide_relu(buf[1:].view(x.shape), w, b)
+    x6, w6, b6 = _vgg_inputs(cuda, 1, 8, 8, 16, 6)
+    with pytest.raises(ValueError):             # Cout not a multiple of 4
+        tk7.conv3x3_wide_relu(x6, w6, b6)
+
+
+@pytest.mark.gpu
+def test_vgg_takes_k7_for_every_convolution(cuda):
+    """VGG16Features on the card: 13 K7 launches a call (the two re-applied
+    conv5_1 included), 13 of them under autograd when the input needs a
+    gradient, and 13 input gradients in the backward; no K5. Every
+    activation and the input's gradient against the CPU's plain path."""
+    from stitchax_torch.models.vgg import VGG16Features
+
+    vgg = VGG16Features()
+    vgg.reset_parameters(torch.Generator().manual_seed(0))
+    vgg.requires_grad_(False)
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    x = x * 2 - 1
+    xc = x.clone().requires_grad_(True)
+    want = vgg(xc)
+    want_g, = torch.autograd.grad(want["relu5_3"].sum()
+                                  + want["relu2_2"].sum(), xc)
+    vgg.to(cuda)
+    library.reset_launches()
+    with torch.no_grad():
+        vgg(x.to(cuda))
+    assert library.launches["conv3x3_wide"] == 13
+    xg = x.to(cuda).requires_grad_(True)
+    got = vgg(xg)
+    assert library.grad_launches["conv3x3_wide"] == 13
+    got_g, = torch.autograd.grad(got["relu5_3"].sum() + got["relu2_2"].sum(),
+                                 xg)
+    assert library.launches == {**dict.fromkeys(library.launches, 0),
+                                "conv3x3_wide": 26,
+                                "conv3x3_wide_input_grad": 13}
+    for k, v in want.items():
+        assert got[k].is_contiguous(), k
+        torch.testing.assert_close(got[k].cpu(), v.detach(), rtol=0,
+                                   atol=1e-5 * v.abs().max().item())
+    torch.testing.assert_close(got_g.cpu(), want_g, rtol=0,
+                               atol=1e-4 * want_g.abs().max().item())
 
 
 # K6 (the evaluation's per-pair scores): the CPU tests' cases

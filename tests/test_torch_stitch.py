@@ -193,7 +193,8 @@ def test_trained_flowformer_stitch_matches_stitchax():
     assert library.launches == {"gsa_attention": 0, "cost_lookup": 0,
                                 "tps_grid": 0, "window_attention": 0,
                                 "conv3x3": 0, "conv3x3_input_grad": 0,
-                                "pair_scores": 0}
+                                "pair_scores": 0, "conv3x3_wide": 0,
+                                "conv3x3_wide_input_grad": 0}
     # (CPU: plain versions only)
     assert canvas == ref_canvas
     np.testing.assert_array_equal(got["canvas_box"], ref["canvas_box"])

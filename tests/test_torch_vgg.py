@@ -196,3 +196,87 @@ def test_seeded_init_is_flax_scaled():
         assert abs(float(w.detach().std()) * fan_in ** 0.5 - 1) < 0.05, name
         assert not getattr(a, name).bias.any()
         assert torch.equal(w, getattr(b, name).weight)
+
+
+def _forward_before_k7(vgg, x):
+    """`VGG16Features.forward` as it stood before K7: F.relu(conv(x)) on
+    NCHW views of the NHWC tensors, the pools between."""
+    import torch.nn.functional as F
+    from stitchax_torch.models.vgg import VGG16_LAYOUT
+
+    x, feats = x.permute(0, 3, 1, 2), {}
+    for name, _, pool in VGG16_LAYOUT:
+        if pool:
+            x = F.max_pool2d(x, 2)
+        x = F.relu(getattr(vgg, name)(x))
+        feats["relu" + name[4:]] = x
+    for name in ("relu5_2", "relu5_3"):
+        x = F.relu(vgg.conv5_1(F.max_pool2d(x, 2)))
+        feats[name] = x
+    return {k: v.permute(0, 2, 3, 1) for k, v in feats.items()}
+
+
+def _seeded_vgg_and_image(seed=0):
+    from stitchax_torch.models.vgg import VGG16Features
+
+    vgg = VGG16Features()
+    vgg.reset_parameters(torch.Generator().manual_seed(seed))
+    x = torch.rand(1, SIZE, SIZE, 3,
+                   generator=torch.Generator().manual_seed(seed + 1)) * 2 - 1
+    return vgg, x
+
+
+def test_cpu_forward_is_the_plain_path_bit_for_bit():
+    """On the CPU the VGG takes no kernel: every activation equals the
+    forward before K7 (NCHW views throughout) bit for bit, with and
+    without a gradient to the input, and each is contiguous NHWC."""
+    from stitchax_torch.ops.kernels import library
+
+    vgg, x = _seeded_vgg_and_image()
+    before = dict(library.launches)
+    with torch.no_grad():
+        got, want = vgg(x), _forward_before_k7(vgg, x)
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert all(v.is_contiguous() for v in got.values())
+    # under autograd too (the CPU's convolution backward is not
+    # bit-reproducible itself with two threads: no gradient compared)
+    xg = x.clone().requires_grad_(True)
+    got, want = vgg(xg), _forward_before_k7(vgg, xg)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert got["relu5_3"].grad_fn is not None
+    assert library.launches == before
+
+
+def test_image_padded_to_four_channels_is_the_same_convolution():
+    """On a card K7 takes conv1_1's image padded with a zero channel (TMA's
+    16-byte rows); with the weight's channel padded alike it is the same
+    convolution: the CPU's plain version within fp32 rounding."""
+    from stitchax_torch.ops.kernels import conv3x3_wide as k7
+
+    vgg, x = _seeded_vgg_and_image(2)
+    pad = torch.nn.functional.pad
+    with torch.no_grad():
+        want = vgg(x)["relu1_1"]
+        got = k7.conv3x3_wide_relu_plain(
+            pad(x, (0, 1)), pad(vgg.conv1_1.weight, (0, 0, 0, 0, 0, 1)),
+            vgg.conv1_1.bias)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 64), (64, 128), (512, 512)])
+def test_k7_input_grad_plain_is_the_convolutions_input_gradient(cin, cout):
+    """The plain version of K7's input gradient (the card tests' reference)
+    against autograd through F.conv2d, NHWC."""
+    from stitchax_torch.ops.kernels import conv3x3_wide as k7
+
+    g = torch.Generator().manual_seed(cin)
+    x = torch.randn(2, 6, 5, cin, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    w = torch.randn(cout, cin, 3, 3, generator=g, dtype=torch.float64)
+    gy = torch.randn(2, 6, 5, cout, generator=g, dtype=torch.float64)
+    y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w, padding=1)
+    want, = torch.autograd.grad(y.permute(0, 2, 3, 1), x, gy)
+    got = k7.input_grad(gy, w)
+    assert got.shape == x.shape
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
